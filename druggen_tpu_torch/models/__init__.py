@@ -1,0 +1,17 @@
+"""Model definitions of the port (mirrors ``druggen_tpu.models``)."""
+
+from druggen_tpu_torch.models.layers import (
+    MLP,
+    Dense,
+    EncoderBlock,
+    GraphMHA,
+    LayerNorm,
+    TransformerEncoder,
+    get_activation,
+    init_torch_style_,
+)
+from druggen_tpu_torch.models.models import Generator
+
+__all__ = ["MLP", "Dense", "EncoderBlock", "GraphMHA", "LayerNorm",
+           "TransformerEncoder", "Generator", "get_activation",
+           "init_torch_style_"]
