@@ -1,4 +1,5 @@
-"""Reader for the JAX package's flax msgpack checkpoints, without flax.
+"""Reader and writer for the JAX package's flax msgpack checkpoints,
+without flax.
 
 ``druggen_tpu/train/checkpoint.py`` writes parameter trees with
 ``flax.serialization.to_bytes``: a msgpack map of maps whose array leaves
@@ -8,6 +9,8 @@ plain Python (no ``msgpack`` package) into a nested dict of numpy arrays,
 bit-equal to ``flax.serialization.msgpack_restore``, and performs the
 stacked -> unrolled encoder conversion of ``load_params_auto``
 (``checkpoint.py:57-77``) so ``scan_layers`` checkpoints load too.
+:func:`msgpack_serialize` writes a nested dict of numpy arrays in the same
+format, which ``flax.serialization.from_bytes`` reads.
 """
 
 from __future__ import annotations
@@ -160,3 +163,86 @@ def read_flax_checkpoint(path: str) -> dict:
     """Read a ``*-G.ckpt`` parameter file in the unrolled layout."""
     with open(path, "rb") as f:
         return unstack_block_params(msgpack_restore(f.read()))
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+_MAX_ARRAY_BYTES = 2 ** 31 - 1   # flax would chunk larger arrays
+
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int,
+              codes: tuple[int, int, int]) -> None:
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+    elif n < 2 ** 8 and codes[0]:
+        out += bytes([codes[0], n])
+    elif n < 2 ** 16:
+        out += bytes([codes[1]]) + struct.pack(">H", n)
+    else:
+        out += bytes([codes[2]]) + struct.pack(">I", n)
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (0, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, str(k))
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (0, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, np.ndarray):
+        n = int(obj)
+        if 0 <= n < 128:
+            out.append(n)
+        elif -32 <= n < 0:
+            out.append(n & 0xFF)
+        elif n >= 0:
+            for code, fmt, top in ((0xCC, ">B", 2 ** 8), (0xCD, ">H", 2 ** 16),
+                                   (0xCE, ">I", 2 ** 32), (0xCF, ">Q", 2 ** 64)):
+                if n < top:
+                    out += bytes([code]) + struct.pack(fmt, n)
+                    break
+        else:
+            for code, fmt, bits in ((0xD0, ">b", 7), (0xD1, ">h", 15),
+                                    (0xD2, ">i", 31), (0xD3, ">q", 63)):
+                if n >= -(2 ** bits):
+                    out += bytes([code]) + struct.pack(fmt, n)
+                    break
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.ascontiguousarray(obj)
+        if arr.nbytes > _MAX_ARRAY_BYTES:
+            raise ValueError(f"array of {arr.nbytes} bytes is too large to "
+                             "write unchunked")
+        payload = bytearray()
+        _pack(payload, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", code) + payload
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """A nested dict of numpy arrays -> flax msgpack bytes (the format of
+    ``flax.serialization.to_bytes``)."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)

@@ -9,9 +9,10 @@ from druggen_tpu_torch.models.layers import (
     TransformerEncoder,
     get_activation,
     init_torch_style_,
+    numerics,
 )
-from druggen_tpu_torch.models.models import Generator
+from druggen_tpu_torch.models.models import Discriminator, Generator
 
 __all__ = ["MLP", "Dense", "EncoderBlock", "GraphMHA", "LayerNorm",
-           "TransformerEncoder", "Generator", "get_activation",
-           "init_torch_style_"]
+           "TransformerEncoder", "Generator", "Discriminator",
+           "get_activation", "init_torch_style_", "numerics"]

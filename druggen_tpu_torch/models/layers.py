@@ -16,17 +16,22 @@ bf16-cast parameters, a :class:`LayerNorm` reduces in f32 with f32
 parameters and returns ``dtype``, and the attention chain runs in the stream
 dtype.  Parameters are stored f32 and named in the reference torch layout
 (``druggen_tpu/interop/torch_ckpt.py``).
+
+The compute dtype, ``fused_mlp`` and ``f32_stats`` are plain attributes of
+the modules, so one set of ``Parameter`` objects runs under several
+numerics (:func:`numerics`), as the JAX step's ``clone(...)``s do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from druggen_tpu_torch.ops.fused_mlp import fused_ln_mlp_ln
+from druggen_tpu_torch.ops.fused_mlp import FusedLnMlpLn
 
 
 class Dense(nn.Module):
@@ -112,18 +117,22 @@ class GraphMHA(nn.Module):
     """Edge-modulated multi-head attention (reference MHA, layers.py:56-137).
 
     ``forward(node [B,N,D], edge [B,N,N,D])`` returns
-    ``(node_out [B,N,D], edge_out [B,N,N,D])``."""
+    ``(node_out [B,N,D], edge_out [B,N,N,D])``; ``edge_out`` is None with
+    ``need_edge=False`` (its ``out_e`` readout is skipped).  ``f32_stats``
+    runs the softmax in f32 and casts it back (JAX ``layers.py:221-227``)."""
 
-    def __init__(self, dim: int, heads: int, dtype=None):
+    def __init__(self, dim: int, heads: int, dtype=None,
+                 f32_stats: bool = False):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
         self.dim = dim
         self.heads = heads
+        self.f32_stats = f32_stats
         for name in ("q", "k", "v", "e", "out_e", "out_n"):
             setattr(self, name, Dense(dim, dim, dtype))
 
-    def forward(self, node, edge):
+    def forward(self, node, edge, need_edge: bool = True):
         b, n, c = node.shape
         h = self.heads
         dk = c // h
@@ -136,9 +145,12 @@ class GraphMHA(nn.Module):
         attn = attn / math.sqrt(dk)
         attn = attn * (e + 1.0) * e
         edge_pre = attn.reshape(b, n, n, c)         # read BEFORE the softmax
-        attn = torch.softmax(attn, dim=2)           # over keys j, per channel
+        if self.f32_stats:
+            attn = torch.softmax(attn.float(), dim=2).to(v.dtype)
+        else:
+            attn = torch.softmax(attn, dim=2)       # over keys j, per channel
         node_agg = (attn * v[:, None]).sum(dim=2).reshape(b, n, c)
-        return self.out_n(node_agg), self.out_e(edge_pre)
+        return self.out_n(node_agg), (self.out_e(edge_pre) if need_edge else None)
 
 
 class EncoderBlock(nn.Module):
@@ -146,31 +158,43 @@ class EncoderBlock(nn.Module):
     (reference Encoder_Block, layers.py:139-193).
 
     ``fused_mlp=True`` computes the edge tail ``ln6(ln4(y+y1) +
-    mlp2(ln4(y+y1)))`` with the fused kernel (:mod:`..ops.fused_mlp`)
-    whenever the tail's dropout is inactive."""
+    mlp2(ln4(y+y1)))`` with the fused kernels (:mod:`..ops.fused_mlp`, K1
+    forward and K2 backward under autograd, first-order only) whenever the
+    tail's dropout is inactive and ``f32_stats`` is off (JAX
+    ``layers.py:321-322``).  ``need_edge=False`` skips the edge stream's
+    readout and tail and returns ``(x, None)``: the critic's last block,
+    whose edge output nothing reads."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
-                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False):
+                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False,
+                 f32_stats: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
         self.fused_mlp = fused_mlp
         for i in (1, 3, 4, 5, 6):
             setattr(self, f"ln{i}", LayerNorm(dim, dtype))
-        self.attn = GraphMHA(dim, heads, dtype)
+        self.attn = GraphMHA(dim, heads, dtype, f32_stats)
         self.mlp = MLP(dim, dim * mlp_ratio, dim, drop_rate, dtype)
         self.mlp2 = MLP(dim, dim * mlp_ratio, dim, drop_rate, dtype)
 
-    def forward(self, x, y):
+    @property
+    def f32_stats(self) -> bool:
+        return self.attn.f32_stats
+
+    def forward(self, x, y, need_edge: bool = True):
         x1 = self.ln1(x)
-        x2, y1 = self.attn(x1, y)
+        x2, y1 = self.attn(x1, y, need_edge)
         x2 = x1 + x2            # residual vs the *normed* input (sic,
         # reference layers.py:187: x2 = x1 + x2)
         x2 = self.ln3(x2)
         x = self.ln5(x2 + self.mlp(x2))
-        if not (self.fused_mlp and (self.drop_rate == 0.0 or not self.training)):
+        if not need_edge:
+            return x, None
+        if not (self.fused_mlp and (self.drop_rate == 0.0 or not self.training)
+                and not self.f32_stats):
             y2 = self.ln4(y + y1)
             return x, self.ln6(y2 + self.mlp2(y2))
-        y = fused_ln_mlp_ln(
+        y = FusedLnMlpLn.apply(
             y + y1,
             self.ln4.weight, self.ln4.bias,
             self.mlp2.fc1.weight.t(), self.mlp2.fc1.bias,
@@ -189,7 +213,31 @@ class TransformerEncoder(nn.Module):
             EncoderBlock(dim, heads, mlp_ratio, drop_rate, dtype, fused_mlp)
             for _ in range(depth))
 
-    def forward(self, x, y):
-        for block in self.Encoder_Blocks:
-            x, y = block(x, y)
+    def forward(self, x, y, need_last_edge: bool = True):
+        last = len(self.Encoder_Blocks) - 1
+        for i, block in enumerate(self.Encoder_Blocks):
+            x, y = block(x, y, need_last_edge or i < last)
         return x, y
+
+
+@contextlib.contextmanager
+def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...):
+    """Run ``model`` under other numerics, on the same ``Parameter``
+    objects: ``dtype`` (None = the promoted input dtype, i.e. f32) for every
+    :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` for every
+    :class:`EncoderBlock`, ``f32_stats`` for every :class:`GraphMHA`.
+    An argument left out keeps the module's own value; all are restored on
+    exit.  The counterpart of the JAX step's ``model.clone(...)``."""
+    saved = []
+    for m in model.modules():
+        for attr, value, kinds in (("dtype", dtype, (Dense, LayerNorm)),
+                                   ("fused_mlp", fused_mlp, (EncoderBlock,)),
+                                   ("f32_stats", f32_stats, (GraphMHA,))):
+            if value is not ... and isinstance(m, kinds):
+                saved.append((m, attr, getattr(m, attr)))
+                setattr(m, attr, value)
+    try:
+        yield model
+    finally:
+        for m, attr, value in reversed(saved):
+            setattr(m, attr, value)

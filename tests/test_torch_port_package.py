@@ -6,6 +6,7 @@ pure-Python chemistry and data modules behave exactly like the originals.
 """
 
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -52,19 +53,68 @@ def test_scan_sees_the_whole_package():
     assert "chip_smoke.py" in paths
     assert "druggen_tpu_torch/ops/fused_mlp.py" in paths
     assert "druggen_tpu_torch/infer/engine.py" in paths
+    assert "druggen_tpu_torch/train/trainer.py" in paths
+    assert "druggen_tpu_torch/train/__main__.py" in paths
 
 
-@pytest.mark.parametrize("name", ["periodic", "mol", "smiles", "canon", "codec"])
+@pytest.mark.parametrize("name", ["periodic", "mol", "smiles", "canon", "codec",
+                                  "fingerprints", "depict"])
 def test_chem_copies_are_verbatim(name):
     """The copies differ from the originals only by the import paths and
     the one-line note naming the original."""
-    orig = open(os.path.join(REPO, "druggen_tpu", "chem", f"{name}.py")).read()
-    copy = open(os.path.join(PORT, "chem", f"{name}.py")).read()
-    note = (f"\n\nCopied from ``druggen_tpu/chem/{name}.py``; imports point "
-            "at this package.")
+    _assert_verbatim_copy("chem", name)
+
+
+@pytest.mark.parametrize("name", ["sampling", "logging", "prefetch"])
+def test_utils_copies_are_verbatim(name):
+    _assert_verbatim_copy("utils", name)
+
+
+def _assert_verbatim_copy(package, name):
+    orig = open(os.path.join(REPO, "druggen_tpu", package, f"{name}.py")).read()
+    copy = open(os.path.join(PORT, package, f"{name}.py")).read()
+    note = (f"\n\nCopied from ``druggen_tpu/{package}/{name}.py``; imports "
+            "point at this package.")
     assert note in copy
     copy = copy.replace(note, "", 1).replace("druggen_tpu_torch.", "druggen_tpu.")
     assert copy == orig
+
+
+def test_train_config_is_the_jax_one_plus_device():
+    from druggen_tpu.config import TrainConfig as JaxTrainConfig
+    from druggen_tpu_torch.config import TrainConfig
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
+    port_fields = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
+    assert port_fields.pop("device") == "cuda"
+    assert port_fields == jax_fields
+
+
+def test_training_metrics_match():
+    """The training-cadence metrics of the port (torch Tanimoto matmul) equal
+    the JAX package's on the same decoded batch."""
+    from druggen_tpu.chem.fingerprints import fingerprints_for_smiles as jax_fps
+    from druggen_tpu.utils.sampling import training_metrics as jax_metrics
+    from druggen_tpu_torch.chem.fingerprints import fingerprints_for_smiles
+    from druggen_tpu_torch.utils.sampling import training_metrics
+
+    jv, pv = _vocab_pair()
+    jd = jax_dataset.featurize_smiles(DRUGLIKE_SMILES, jv, 45, use_native=False)
+    pd = dataset.featurize_smiles(DRUGLIKE_SMILES, pv, 45)
+    # logits that decode to real molecules of the corpus, two of them perturbed
+    rng = np.random.default_rng(0)
+    node_logits = 4.0 * np.eye(pv.m_dim, dtype=np.float32)[pd.x[8:16]]
+    edge_logits = 4.0 * np.eye(pv.b_dim, dtype=np.float32)[pd.a[8:16]]
+    node_logits[:2] += rng.normal(size=node_logits[:2].shape).astype(np.float32) * 3
+    drugs = DRUGLIKE_SMILES[:20]
+    got = training_metrics(node_logits, edge_logits, pd.x[:8], pd.a[:8], pv,
+                           drugs, fingerprints_for_smiles(drugs))
+    ref = jax_metrics(node_logits, edge_logits, jd.x[:8], jd.a[:8], jv, drugs,
+                      jax_fps(drugs))
+    assert got.keys() == ref.keys() and got["Validity"] > 0.5
+    assert 0 < got["SNN_drug"] < 1
+    for key in ref:
+        assert got[key] == pytest.approx(ref[key], rel=1e-6, abs=1e-9), key
 
 
 def _vocab_pair():
