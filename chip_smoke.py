@@ -12,14 +12,17 @@ exits non-zero without printing a result line:
 2. build    — compile every kernel source with nvcc (``-Xptxas -v``), one
                nvcc a source, all started together.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-               the main paths' shape (bf16 and f32) and on a ragged row
-               count: K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward).
+               the main paths' shape (bf16 and f32) and on a ragged shape:
+               K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
+               built for dim 64; K5 (``edge_attention_fwd``) and K6 (its
+               backward) at the training shape, at D 256 and on a ragged N,
+               K6 twice for the same bits.
 4. serving  — the port's ``InferenceEngine.run()`` on the trained r2_scale
                Generator (bf16, fused edge tail), 4 batches of 512 graphs;
                the kernel launch counts of that run are checked.
 5. agree    — kernel path vs the plain bf16 path on one batch (labels).
 6. timing   — each kernel, its plain version and an eager yardstick, CUDA
-               events, beside the card's bound.
+               events, beside the card's bound (K1, K2, K5, K6).
 7. profile  — one serving forward under torch.profiler: device time by
                kernel and the card's idle share of the forward.
 8. training — the port's ``Trainer`` (what ``python -m
@@ -28,11 +31,16 @@ exits non-zero without printing a result line:
                16 steps over the first 8,192 corpus molecules; the launch
                counts, finite losses, moved parameters and the written
                ``DrugGEN-G.ckpt`` (served by ``InferenceEngine``) are checked.
+8p. training with ``--use_pallas`` — the same run with the Generator's
+               attention through K5/K6: launch counts of K1, K2, K5 and K6,
+               finite losses, moved parameters, the checkpoint served back.
 9. step agreement — one step from the same state through the kernels and
                through the plain versions, bf16 and f32: losses, every
-               gradient of G and D, and the G edge tails' gradients.
-10. step profile — one training step under torch.profiler: device time by
-               kernel, K1's and K2's share, the card's idle share.
+               gradient of G and D, and the G edge tails' gradients; then the
+               same with ``use_pallas`` (and the G attention's gradients).
+10. step profile — one training step under torch.profiler, without and
+               with ``use_pallas``: device time by kernel, K1's, K2's, K5's
+               and K6's share, the card's idle share.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -109,8 +117,41 @@ MIN_LABEL_AGREEMENT = 0.999
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-KERNEL_SOURCES = ("fused_mlp", "fused_mlp_bwd")
+# each kernel source, with the widths it is built for (K1/K2 take theirs
+# from the build: the published config's and dim 64 with mlp_ratio 3)
+NARROW_DIM, NARROW_HIDDEN, NARROW_ROWS = 64, 192, 200_003
+KERNEL_BUILDS = (
+    ("fused_mlp", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
+    ("fused_mlp_bwd", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
+    ("fused_mlp", {"KERNEL_C": NARROW_DIM, "KERNEL_H": NARROW_HIDDEN}),
+    ("fused_mlp_bwd", {"KERNEL_C": NARROW_DIM, "KERNEL_H": NARROW_HIDDEN}),
+    ("fused_attention", {}),
+    ("fused_attention_bwd", {}),
+)
 GRAD_NAMES = ("dg1", "dbl1", "dw1", "db1", "dw2", "db2", "dg2", "dbl2")
+# K5/K6: the fused edge attention.  8 heads; the training shape, D 256 and
+# a ragged N.  Outputs against the plain version, compared in f32: bf16
+# |err| <= 1e-2 + 2^-7 |ref| (f32 sums in another order can round a value
+# to the neighbouring bf16 one), f32 1e-4 + 1e-5 |ref|; K6's eight
+# gradients by relative norm error, bf16 1e-3, f32 1e-5 (on an H100 bf16
+# reads at most 2.7e-5; the plain K6 with e, de or its upstream gradient
+# rounded to bf16 reads over 2e-3, tests/test_torch_port_fused_attention.py).
+HEADS = 8
+ATTN_SHAPES = ((TRAIN_BATCH, N_ATOMS, DIM), (64, N_ATOMS, 256), (7, 13, DIM))
+ATTN_GRADS = ("dq", "dk", "dv", "d_eraw", "dwe", "dbe", "dwoe", "dboe")
+TOL_ATTN = {torch.bfloat16: (1e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
+TOL_ATTN_GRAD_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# With use_pallas the step through the kernels is held against the same step
+# through K5/K6's plain versions (same rounding points) under TOL_STEP and
+# TOL_TAIL, and in f32 against the plain path too; the bf16 plain path rounds
+# e, t and the softmax at bf16 where K5/K6 keep f32, so that comparison is
+# printed, not held (see the step agreement).  ATTN_PARAMS: G's attention.
+ATTN_PARAMS = (".attn.",)
+# f32 products at full f32 accuracy (NVIDIA data sheet): FMA on the CUDA
+# cores, or 3xTF32 on the tensor cores (three TF32 products each, 495
+# TFLOP/s).  K5/K6 run FFMA; their bound is the faster of the two.
+PEAK_FFMA_S = 67e12
+PEAK_3XTF32_S = 495e12 / 3
 
 
 @contextlib.contextmanager
@@ -144,14 +185,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def tail_params(gen: torch.Generator, device) -> tuple:
-    """Random LN/MLP tail parameters at the serving width (f32)."""
+def tail_params(gen: torch.Generator, device, c: int = DIM, h: int = HIDDEN) -> tuple:
+    """Random LN/MLP tail parameters (f32), at the serving width by default."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device)
-    g1, bl1 = 1 + 0.1 * randn(DIM), 0.1 * randn(DIM)
-    w1, b1 = randn(DIM, HIDDEN) / math.sqrt(DIM), 0.1 * randn(HIDDEN)
-    w2, b2 = randn(HIDDEN, DIM) / math.sqrt(HIDDEN), 0.1 * randn(DIM)
-    g2, bl2 = 1 + 0.1 * randn(DIM), 0.1 * randn(DIM)
+    g1, bl1 = 1 + 0.1 * randn(c), 0.1 * randn(c)
+    w1, b1 = randn(c, h) / math.sqrt(c), 0.1 * randn(h)
+    w2, b2 = randn(h, c) / math.sqrt(h), 0.1 * randn(c)
+    g2, bl2 = 1 + 0.1 * randn(c), 0.1 * randn(c)
     return g1, bl1, w1, b1, w2, b2, g2, bl2
 
 
@@ -198,8 +239,9 @@ def bwd_row_ok(dtype):
 def check_bwd_kernel(bwd, reference, witness, params, rows: int, dtype, gen) -> dict:
     """K2 against its plain version on the same inputs, with the rows beyond
     tolerance witnessed at the ReLU kink (see MAX_FLIP_ROW_SHARE)."""
-    s = torch.randn(rows, DIM, generator=gen, device="cuda").to(dtype)
-    dout = torch.randn(rows, DIM, generator=gen, device="cuda").to(dtype)
+    c = params[0].shape[0]
+    s = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
     got = bwd(s, *params, dout)
     torch.cuda.synchronize()
     ref = reference(s, *params, dout)
@@ -222,7 +264,7 @@ def check_bwd_kernel(bwd, reference, witness, params, rows: int, dtype, gen) -> 
           and len(bad) <= max(1, int(MAX_FLIP_ROW_SHARE * rows))
           and max(rels.values()) <= TOL_GRAD_REL[dtype]
           and (dtype != torch.bfloat16 or mean_err <= TOL_BF16_MEAN))
-    print(f"   K2 rows {rows:>9,} {str(dtype):>14}: ds max |kernel - plain| "
+    print(f"   K2 C {c} rows {rows:>9,} {str(dtype):>14}: ds max |kernel - plain| "
           f"{max_err:.3e}; rows beyond tolerance {len(bad)}, witnessed at "
           f"the kink {len(bad) - len(unexplained)}; with the witnessed "
           f"settings: ds max {set_max:.3e}, mean {mean_err:.3e}, rows beyond "
@@ -240,7 +282,7 @@ def check_bwd_kernel(bwd, reference, witness, params, rows: int, dtype, gen) -> 
 
 
 def check_kernel(fused, reference, params, rows: int, dtype, gen) -> dict:
-    s = torch.randn(rows, DIM, generator=gen, device="cuda").to(dtype)
+    s = torch.randn(rows, params[0].shape[0], generator=gen, device="cuda").to(dtype)
     out_k = fused(s, *params)
     torch.cuda.synchronize()
     out_p = reference(s, *params)
@@ -251,7 +293,7 @@ def check_kernel(fused, reference, params, rows: int, dtype, gen) -> dict:
         raise AssertionError("kernel output is not finite")
     err = (out_k.float() - out_p.float()).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
-    print(f"   rows {rows:>9,} {str(dtype):>14}: max |kernel - plain| "
+    print(f"   K1 C {s.shape[-1]} rows {rows:>9,} {str(dtype):>14}: max |kernel - plain| "
           f"{max_err:.3e}, mean {mean_err:.3e}", flush=True)
     if dtype == torch.bfloat16:
         ok = max_err <= TOL_BF16_MAX and mean_err <= TOL_BF16_MEAN
@@ -262,6 +304,87 @@ def check_kernel(fused, reference, params, rows: int, dtype, gen) -> dict:
                              f"({dtype}, rows {rows}): max {max_err}, "
                              f"mean {mean_err}")
     return {"max_abs_err": max_err, "mean_abs_err": mean_err}
+
+
+def attn_inputs(b: int, n: int, d: int, dtype, gen) -> tuple:
+    """Random K5/K6 inputs: activations in ``dtype``, f32 parameters
+    ([in, out]), cotangents in ``dtype``."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+    acts = [r(b, n, d).to(dtype) for _ in range(3)] + [r(b, n, n, d).to(dtype)]
+    params = [r(d, d, scale=d ** -0.5), r(d, scale=0.1), r(d, d, scale=d ** -0.5),
+              r(d, scale=0.1)]
+    return acts, params, (r(b, n, n, d).to(dtype), r(b, n, d).to(dtype))
+
+
+def check_attn_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = False) -> dict:
+    """K5 on edge_out, node_agg and t, and K6 on its eight gradients (from
+    the kernel's own t), each against its plain version on the same inputs;
+    ``twice``: K6 run again must give the same bits."""
+    acts, params, (ge, gn) = attn_inputs(b, n, d, dtype, gen)
+    got = fa.edge_attention_fwd(*acts, *params, HEADS)
+    torch.cuda.synchronize()
+    ref = fa.edge_attention_fwd_reference(*acts, *params, HEADS)
+    atol, rtol = TOL_ATTN[dtype]
+    fwd_err = {}
+    for name, g_, r_ in zip(("edge_out", "node_agg", "t"), got, ref):
+        if g_.shape != r_.shape or g_.dtype != dtype or not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"K5 {name}: {g_.shape} {g_.dtype}, or not finite")
+        err = (g_.float() - r_.float()).abs()
+        fwd_err[name] = err.max().item()
+        if not bool((err <= atol + rtol * r_.float().abs()).all()):
+            raise AssertionError(f"K5 {name} disagrees with its plain version "
+                                 f"({dtype}, B {b} N {n} D {d}): max {fwd_err[name]}")
+    del ref
+    t_res = got[2]
+    grads = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, HEADS)
+    torch.cuda.synchronize()
+    ref = fa.edge_attention_bwd_reference(*acts, *params[:3], t_res, ge, gn, HEADS)
+    rels = {name: rel_err(g_.float(), r_.float())
+            for name, g_, r_ in zip(ATTN_GRADS, grads, ref)}
+    bwd_max = max((g_.float() - r_.float()).abs().max().item()
+                  for g_, r_ in zip(grads, ref))
+    del ref
+    same = None
+    if twice:
+        again = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, HEADS)
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
+    print(f"   K5/K6 B {b} N {n} D {d} {str(dtype):>14}: K5 max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_err.items())
+          + "; K6 rel. errors " + ", ".join(f"{k} {v:.1e}" for k, v in rels.items())
+          + ("" if same is None else f"; K6 twice, same bits: {same}"), flush=True)
+    tol = TOL_ATTN_GRAD_REL[dtype]
+    if max(rels.values()) > tol or not all(torch.isfinite(g_.float()).all() for g_ in grads):
+        raise AssertionError(f"K6 disagrees with its plain version ({dtype}, "
+                             f"B {b} N {n} D {d}): {rels}")
+    if same is False:
+        raise AssertionError("K6 gave other bits on a second call")
+    return {"max_abs_err": max(fwd_err.values()), "bwd_max_abs_err": bwd_max,
+            "grad_rel_err": max(rels.values())}
+
+
+def attn_bounds(b: int, n: int, d: int, dtype) -> tuple:
+    """Least milliseconds for one K5 and one K6 call: each input read once
+    and each output written once, against their f32 products (K5: e and
+    out_e, 2 x 2 R D^2; K6: five, 5 x 2 R D^2) at full f32 accuracy.  For
+    each kernel ``(bound_ms, bound_by, ffma_ms)``: the bound on the faster
+    f32 route (3xTF32 on the tensor cores) and the operations' time on the
+    FMA route the kernels take."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    rows, nodes = b * n * n, b * n
+    w_bytes = (2 * d * d + 2 * d) * 4
+    fwd_bytes = (3 * nodes * d + rows * d) * item + w_bytes \
+        + (2 * rows * d + nodes * d) * item
+    bwd_bytes = (4 * nodes * d + 3 * rows * d) * item + (2 * d * d + d) * 4 \
+        + (3 * nodes * d + rows * d) * item + (2 * d * d + 2 * d) * 4
+    out = []
+    for nbytes, flops in ((fwd_bytes, 4 * rows * d * d), (bwd_bytes, 10 * rows * d * d)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_3XTF32_S * 1e3
+        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        out.append(bound + (flops / PEAK_FFMA_S * 1e3,))
+    return tuple(out)
 
 
 def snapshot(opts) -> list:
@@ -279,10 +402,12 @@ def restore(opts, snap) -> None:
                    for f in dataclasses.fields(st)})
 
 
-def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
-    """Phases 8-10: the port's Trainer at the full r2_scale config, one step
-    through the kernels against one through the plain versions, and one
-    step under the profiler."""
+def training_phases(name: str, smi_line: str, counted: dict) -> dict:
+    """Phases 8-10: the port's Trainer at the full r2_scale config, without
+    and with ``use_pallas``; one step through the kernels against one
+    through the plain versions; one step of each under the profiler.
+    ``counted``: the kernel wrappers by record name (each with its
+    ``launches`` count)."""
     from druggen_tpu_torch.chem.vocab import Vocab
     from druggen_tpu_torch.config import InferenceConfig, TrainConfig
     from druggen_tpu_torch.data.dataset import BatchIterator
@@ -292,24 +417,29 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
     from druggen_tpu_torch.train.trainer import Trainer
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
-    with phase("8 training"):
-        raw = os.path.join(tmp.name, f"chembl_like_{TRAIN_MOLECULES}.smi")
-        with open(SMILES_FILE) as src, open(raw, "w") as dst:
-            for _, line in zip(range(TRAIN_MOLECULES), src):
-                dst.write(line)
-        with open(TRAIN_VOCAB_JSON) as f:
-            vocab = Vocab.from_json(f.read())
+    raw = os.path.join(tmp.name, f"chembl_like_{TRAIN_MOLECULES}.smi")
+    with open(SMILES_FILE) as src, open(raw, "w") as dst:
+        for _, line in zip(range(TRAIN_MOLECULES), src):
+            dst.write(line)
+    with open(TRAIN_VOCAB_JSON) as f:
+        vocab = Vocab.from_json(f.read())
+
+    def train_run(use_pallas: bool):
+        """One epoch (16 steps) of the trainer; checks launches, losses,
+        moved parameters and the exported checkpoint served back."""
         # experiments/r2_scale/README.md "Config": batch 512, bf16,
         # --fused_mlp --fused_critic, seed 42; dim 128, depth 1, heads 8
+        sub = os.path.join(tmp.name, "pallas" if use_pallas else "plain")
         cfg = TrainConfig(
             raw_file=raw, drug_raw_file=DRUG_FILE, submodel="DrugGEN",
             batch_size=TRAIN_BATCH, epoch=1, compute_dtype="bfloat16",
-            fused_mlp=True, fused_critic=True, log_sample_step=TRAIN_CADENCE,
+            fused_mlp=True, fused_critic=True, use_pallas=use_pallas,
+            log_sample_step=TRAIN_CADENCE,
             set_seed=True, seed=42, exp_name="chip_smoke",
             mol_data_dir=tmp.name, drug_data_dir=tmp.name,
-            log_dir=os.path.join(tmp.name, "logs"),
-            sample_dir=os.path.join(tmp.name, "samples"),
-            model_save_dir=os.path.join(tmp.name, "models"), device="cuda")
+            log_dir=os.path.join(sub, "logs"),
+            sample_dir=os.path.join(sub, "samples"),
+            model_save_dir=os.path.join(sub, "models"), device="cuda")
         t0 = time.perf_counter()
         trainer = Trainer(cfg, vocab=vocab)
         print(f"   trainer set-up (featurise {len(trainer.data)} + "
@@ -319,24 +449,28 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
         opts = (trainer.g_opt, trainer.d_opt)
         before = [o.flat.clone() for o in opts]
         torch.cuda.reset_peak_memory_stats()
-        fwd.launches = 0
-        bwd.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         trainer.train(time_steps=True)
         wall = time.perf_counter() - t0
-        launches = {"fused_ln_mlp_ln_fwd": fwd.launches,
-                    "fused_ln_mlp_ln_bwd": bwd.launches}
+        launches = {key: fn.launches for key, fn in counted.items()}
         steps = trainer.step
-        per_step = cfg.depth + 3 * (cfg.ddepth - 1)
-        print(f"   launches: {launches} over {steps} steps (expected "
-              f"{per_step} of each a step: G depth + 3 x (critic depth - 1), "
-              f"the critic's last-block edge tail skipped)")
+        tail = cfg.depth + 3 * (cfg.ddepth - 1)
+        # one Generator forward a step (share_fake: its graph is kept for
+        # the G update) and one backward; the cadence reads that step's
+        # logits and runs no forward of its own
+        attn = cfg.depth if use_pallas else 0
+        expected = {"fused_ln_mlp_ln_fwd": tail * steps, "fused_ln_mlp_ln_bwd": tail * steps,
+                    "edge_attention_fwd": attn * steps, "edge_attention_bwd": attn * steps}
+        print(f"   launches: {launches} over {steps} steps (expected {expected}: "
+              f"K1/K2 G depth + 3 x (critic depth - 1), the critic's last-block "
+              f"edge tail skipped; K5/K6 G depth with use_pallas)")
         if steps != TRAIN_MOLECULES // TRAIN_BATCH:
             raise AssertionError(f"{steps} steps, expected one epoch")
-        if (launches["fused_ln_mlp_ln_fwd"] != per_step * steps
-                or launches["fused_ln_mlp_ln_bwd"] != per_step * steps):
-            raise AssertionError("the training run did not go through K1 and "
-                                 "K2 the expected number of times")
+        if launches != expected:
+            raise AssertionError("the training run did not go through the kernels "
+                                 "the expected number of times")
         logs = [json.loads(line) for line in open(trainer.logger.jsonl_path)]
         losses = [(r["d_loss"], r["g_loss"]) for r in logs if "d_loss" in r]
         if len(losses) != steps or not all(math.isfinite(v) for pair in losses
@@ -357,7 +491,8 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
         steady = statistics.median(windows[2:])
         peak = torch.cuda.max_memory_allocated()
         print(f"   step windows (s): {[round(w, 4) for w in windows]}")
-        print(f"   training on {name} ({smi_line}): steady step {steady * 1e3:.2f} "
+        print(f"   training{' with use_pallas' if use_pallas else ''} on {name} "
+              f"({smi_line}): steady step {steady * 1e3:.2f} "
               f"ms (median window of steps 3-{steps}); training rate "
               f"{TRAIN_BATCH / steady:.1f} graphs/s; peak memory "
               f"{peak / 2**30:.2f} GiB (max_memory_allocated); run wall "
@@ -369,7 +504,7 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
             sample_num=TRAIN_BATCH, disable_correction=True, inf_smiles=raw,
             train_smiles=raw, train_drug_smiles=DRUG_FILE,
             inf_batch_size=TRAIN_BATCH, inf_max_batches=1,
-            mol_data_dir=tmp.name, output_dir=os.path.join(tmp.name, "inf"),
+            mol_data_dir=tmp.name, output_dir=os.path.join(sub, "inf"),
             compute_dtype="bfloat16", fused_mlp=True, device="cuda")
         engine = InferenceEngine(inf, vocab=vocab)
         trained = trainer.G.state_dict()
@@ -382,13 +517,41 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
         if not same or len(decoded) != TRAIN_BATCH:
             raise AssertionError("the trained checkpoint did not serve")
         del engine
+        return trainer, cfg, launches, {"step_ms": steady * 1e3,
+                                        "graphs_per_s": TRAIN_BATCH / steady,
+                                        "peak_gib": peak / 2 ** 30}
 
-    with phase("9 step agreement"):
-        x, a = next(iter(BatchIterator(trainer.data, TRAIN_BATCH, seed=SEED)))
-        dx, da = next(iter(BatchIterator(trainer.drug_data, TRAIN_BATCH, seed=SEED)))
+    with phase("8 training"):
+        trainer, cfg, launches, _ = train_run(False)
+    with phase("8p training --use_pallas"):
+        trainer_p, _, launches_p, rate_p = train_run(True)
+
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    @contextlib.contextmanager
+    def plain_attention():
+        """K5/K6's plain versions in place of the kernels (same rounding
+        points), for the step that holds the kernels in the training step."""
+        saved = fa.edge_attention_fwd, fa.edge_attention_bwd
+        fa.edge_attention_fwd = fa.edge_attention_fwd_reference
+        fa.edge_attention_bwd = fa.edge_attention_bwd_reference
+        try:
+            yield
+        finally:
+            fa.edge_attention_fwd, fa.edge_attention_bwd = saved
+
+    def agreement(tr, pallas: bool, reference: str, x, a, dx, da):
+        """One step from the same state through the kernels and through a
+        reference: ``"plain path"`` (no kernel: the eager modules) or
+        ``"plain K5/K6"`` (the same step with K5/K6's plain versions)."""
+        opts = (tr.g_opt, tr.d_opt)
         g_opt = opts[0]
-        tail = torch.cat([torch.full((p.numel(),), any(t in n for t in TAIL_PARAMS))
-                          for n, p in zip(g_opt.names, g_opt.params)]).cuda()
+
+        def mask(parts):
+            return torch.cat([torch.full((p.numel(),), any(t in n for t in parts))
+                              for n, p in zip(g_opt.names, g_opt.params)]).cuda()
+
+        tail, attn = mask(TAIL_PARAMS), mask(ATTN_PARAMS)
         for dtype in (torch.bfloat16, torch.float32):
             snap = snapshot(opts)
             eps_gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -402,38 +565,61 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
                 for o in opts:      # record the gradients each update takes
                     o.step = (lambda g, o=o: (grads.append(o.flat_grads(g)),
                                               AdamW.step(o, g)))
-                step = TrainStep(trainer.G, trainer.D, *opts,
-                                 lambda_gp=cfg.lambda_gp, m_dim=trainer.m_dim,
-                                 b_dim=trainer.b_dim, submodel=cfg.submodel,
-                                 compute_dtype=dtype, g_fused=fused,
-                                 fused_critic=fused)
-                fwd.launches = bwd.launches = 0
-                out = step(x, a, dx, da, eps=eps)
+                kernels = fused or reference == "plain K5/K6"
+                step = TrainStep(tr.G, tr.D, *opts,
+                                 lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
+                                 b_dim=tr.b_dim, submodel=cfg.submodel,
+                                 compute_dtype=dtype, g_fused=kernels,
+                                 fused_critic=kernels, g_pallas=kernels and pallas)
+                for fn in counted.values():
+                    fn.launches = 0
+                with contextlib.nullcontext() if fused else (
+                        plain_attention() if reference == "plain K5/K6"
+                        else contextlib.nullcontext()):
+                    out = step(x, a, dx, da, eps=eps)
                 results[fused] = (out["d_loss"].float().item(),
                                   out["g_loss"].float().item(), grads,
-                                  (fwd.launches, bwd.launches))
+                                  tuple(fn.launches for fn in counted.values()))
                 for o in opts:
                     del o.step
                 restore(opts, snap)
             (dk, gk, grads_k, lk), (dp, gp, grads_p, lp) = results[True], results[False]
             rel_d, rel_g = rel_err(grads_k[0], grads_p[0]), rel_err(grads_k[1], grads_p[1])
             rel_tail = rel_err(grads_k[1][tail], grads_p[1][tail])
+            rel_attn = rel_err(grads_k[1][attn], grads_p[1][attn])
             dl = abs(dk - dp) / max(1.0, abs(dp))
             gl = abs(gk - gp) / max(1.0, abs(gp))
-            print(f"   {str(dtype):>14}: d_loss kernels {dk:.6f} plain {dp:.6f}; "
-                  f"g_loss kernels {gk:.6f} plain {gp:.6f}; gradient rel. error "
-                  f"D {rel_d:.3e}, G {rel_g:.3e}, G's edge tails {rel_tail:.3e}; "
-                  f"launches (K1, K2) kernels {lk}, plain {lp}", flush=True)
+            label = f"{'use_pallas, ' if pallas else ''}kernels vs {reference}"
+            print(f"   {label} {str(dtype):>14}: d_loss {dk:.6f} / {dp:.6f}; "
+                  f"g_loss {gk:.6f} / {gp:.6f}; gradient rel. error "
+                  f"D {rel_d:.3e}, G {rel_g:.3e}, G's edge tails {rel_tail:.3e}, "
+                  f"G's attention {rel_attn:.3e}; launches (K1, K2, K5, K6) "
+                  f"{lk} / {lp}", flush=True)
+            want_k = (1, 1, int(pallas), int(pallas))
+            want_p = (1, 1, 0, 0) if reference == "plain K5/K6" else (0, 0, 0, 0)
+            if [min(v, 1) for v in lk] != list(want_k) or [min(v, 1) for v in lp] != list(want_p):
+                raise AssertionError(f"launches {lk} / {lp} in the step agreement ({label})")
+            if pallas and reference == "plain path" and dtype == torch.bfloat16:
+                # information: the plain bf16 path rounds e, t, the softmax and
+                # the tail's input at bf16 where K5/K6 keep f32 (the JAX
+                # package's use_pallas step differs from its XLA step alike);
+                # the kernels are held by the "plain K5/K6" comparison
+                continue
             tol = TOL_STEP[dtype]
-            if (max(dl, gl, rel_d, rel_g) > tol or rel_tail > TOL_TAIL[dtype]
-                    or lp != (0, 0) or min(lk) < 1):
+            if (max(dl, gl, rel_d, rel_g, rel_attn) > tol or rel_tail > TOL_TAIL[dtype]):
                 raise AssertionError(f"step through the kernels disagrees with "
-                                     f"the plain step ({dtype}): losses {dl}, "
-                                     f"{gl}, gradients D {rel_d}, G {rel_g}, "
-                                     f"G's edge tails {rel_tail}")
+                                     f"the {reference} step ({label}, {dtype}): losses "
+                                     f"{dl}, {gl}, gradients D {rel_d}, G {rel_g}, "
+                                     f"G's edge tails {rel_tail}, G's attention {rel_attn}")
 
-    with phase("10 step profile"):
-        step = trainer.step_fn
+    with phase("9 step agreement"):
+        x, a = next(iter(BatchIterator(trainer.data, TRAIN_BATCH, seed=SEED)))
+        dx, da = next(iter(BatchIterator(trainer.drug_data, TRAIN_BATCH, seed=SEED)))
+        agreement(trainer, False, "plain path", x, a, dx, da)
+        agreement(trainer_p, True, "plain K5/K6", x, a, dx, da)
+        agreement(trainer_p, True, "plain path", x, a, dx, da)
+
+    def profile_step(step, label: str) -> dict:
         step(x, a, dx, da)
         step_ms = cuda_ms(lambda: step(x, a, dx, da), 3, warmup=1)
         with torch.profiler.profile(activities=[
@@ -446,23 +632,35 @@ def training_phases(name: str, smi_line: str, fwd, bwd) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0]
         busy = sum(k[1] for k in kernels)
-        k1_ms = sum(k[1] for k in kernels if "fused_ln_mlp_ln_fwd_kernel" in k[0])
-        # K2's three launches (PyTorch has a reduce_kernel of its own)
-        k2_ms = sum(k[1] for k in kernels if any(
-            k[0].startswith(f"void (anonymous namespace)::{n}")
-            for n in ("rows_kernel<", "wgrad_kernel<", "reduce_kernel(")))
-        print(f"   training step, batch {TRAIN_BATCH}, bf16 + fused tails, on "
+
+        def share(prefixes):
+            return sum(k[1] for k in kernels if any(
+                k[0].startswith(f"void (anonymous namespace)::{p}") for p in prefixes))
+
+        ms = {"K1": sum(k[1] for k in kernels if "fused_ln_mlp_ln_fwd_kernel" in k[0]),
+              # K2's three launches (PyTorch has a reduce_kernel of its own)
+              "K2": share(("rows_kernel<", "wgrad_kernel<", "reduce_kernel(")),
+              "K5": share(("attn_fwd_kernel<",)),
+              "K6": share(("attn_bwd_",))}
+        print(f"   training step{label}, batch {TRAIN_BATCH}, bf16 + fused tails, on "
               f"{name} ({smi_line}): {step_ms:.3f} ms (CUDA events, mean of 3); "
               f"kernels {busy:.3f} ms; idle share "
-              f"{max(0.0, 1 - busy / step_ms):.3f}; K1 {k1_ms:.3f} ms "
-              f"({100 * k1_ms / max(busy, 1e-9):.1f}%), K2 {k2_ms:.3f} ms "
-              f"({100 * k2_ms / max(busy, 1e-9):.1f}%)")
-        for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
-            print(f"   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{count:<3d} {key[:90]}")
+              f"{max(0.0, 1 - busy / step_ms):.3f}; "
+              + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+                          for k, v in ms.items()))
+        for key, t_ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
+            print(f"   {t_ms:8.3f} ms {100 * t_ms / busy:5.1f}% x{count:<3d} {key[:90]}")
         if not kernels:
             print("   the profiler recorded no device time")
+        return {"step_ms": step_ms, "busy_ms": busy, **{f"{k}_ms": v for k, v in ms.items()}}
+
+    with phase("10 step profile"):
+        profile_step(trainer.step_fn, "")
+        prof_p = profile_step(trainer_p.step_fn, " with use_pallas (K5/K6 in G)")
+    del trainer, trainer_p
     tmp.cleanup()
-    return {"launches": launches}
+    return {"launches": launches, "launches_pallas": launches_p,
+            "pallas_rate": rate_p, "pallas_profile": prof_p}
 
 
 def main() -> int:
@@ -475,6 +673,7 @@ def main() -> int:
     from druggen_tpu_torch.data.dataset import BatchIterator
     from druggen_tpu_torch.infer.engine import InferenceEngine
     from druggen_tpu_torch.ops import _build
+    from druggen_tpu_torch.ops import fused_attention as fa
     from druggen_tpu_torch.ops.fused_mlp import (
         _bwd_lib,
         _kernel_lib,
@@ -496,22 +695,30 @@ def main() -> int:
         print(smi_line, flush=True)
 
     with phase("2 build"):
-        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-            builds = list(pool.map(_build.build, KERNEL_SOURCES))
-        for src, b in zip(KERNEL_SOURCES, builds):
-            print(f"   {src}.cu: {b.seconds:.2f} s{' (cached)' if b.cached else ''}")
+        with ThreadPoolExecutor(len(KERNEL_BUILDS)) as pool:
+            builds = list(pool.map(lambda sd: _build.build(*sd), KERNEL_BUILDS))
+        for (src, defines), b in zip(KERNEL_BUILDS, builds):
+            print(f"   {src}.cu {defines}: {b.seconds:.2f} s"
+                  f"{' (cached)' if b.cached else ''}")
             for line in b.log.splitlines():
                 if "registers" in line or "Compiling entry" in line:
                     print(f"   {line.strip()}")
-        lib = _kernel_lib()
-        print(f"   fused_mlp dynamic shared memory: bf16 "
-              f"{lib.fused_ln_mlp_ln_fwd_smem_bytes(1)} B, f32 "
-              f"{lib.fused_ln_mlp_ln_fwd_smem_bytes(0)} B a block", flush=True)
-        blib = _bwd_lib()
-        print(f"   fused_mlp_bwd rows pass dynamic shared memory: bf16 "
-              f"{blib.fused_ln_mlp_ln_bwd_smem_bytes(1)} B, f32 "
-              f"{blib.fused_ln_mlp_ln_bwd_smem_bytes(0)} B a block", flush=True)
+        for c, h in ((DIM, HIDDEN), (NARROW_DIM, NARROW_HIDDEN)):
+            lib, blib = _kernel_lib(c, h), _bwd_lib(c, h)
+            for bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
+                sizes = (lib.fused_ln_mlp_ln_fwd_smem_bytes(bf16),
+                         blib.fused_ln_mlp_ln_bwd_smem_bytes(bf16))
+                print(f"   fused_mlp C {c} H {h} {dtype}: dynamic shared memory "
+                      f"K1 {sizes[0]} B, K2 rows pass {sizes[1]} B a block")
+        alib, ablib = fa._fwd_lib(), fa._bwd_lib()
+        print(f"   fused_attention dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
+              f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
+              f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block", flush=True)
 
+    counted = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln,
+               "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd,
+               "edge_attention_fwd": fa.edge_attention_fwd,
+               "edge_attention_bwd": fa.edge_attention_bwd}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = tail_params(gen, "cuda")
     with phase("3 kernels vs plain"):
@@ -528,7 +735,22 @@ def main() -> int:
         check_bwd_kernel(*k2_check, ROWS, torch.float32, gen)
         for dtype in (torch.bfloat16, torch.float32):
             check_bwd_kernel(*k2_check, RAGGED_ROWS, dtype, gen)
+        # K1/K2 built for dim 64, mlp_ratio 3 (a ragged row count)
+        narrow = tail_params(gen, "cuda", NARROW_DIM, NARROW_HIDDEN)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, narrow,
+                         NARROW_ROWS, dtype, gen)
+            check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
+                             witness_kink_flips, narrow, NARROW_ROWS, dtype, gen)
         torch.cuda.empty_cache()
+        attn_checks = {}
+        for b, n, d in ATTN_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                attn_checks[(b, n, d, dtype)] = check_attn_kernels(
+                    fa, b, n, d, dtype, gen,
+                    twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
+                torch.cuda.empty_cache()
+        k56 = attn_checks[(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)]
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     with phase("4 serving"):
@@ -550,10 +772,10 @@ def main() -> int:
         print(f"   engine set-up (featurise {len(engine.data)} molecules, "
               f"read checkpoint): {time.perf_counter() - t0:.2f} s")
 
-        fused_ln_mlp_ln.launches = fused_ln_mlp_ln_bwd.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         results = engine.run()
-        launches = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln.launches,
-                    "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd.launches}
+        launches = {key: fn.launches for key, fn in counted.items()}
 
         n_batches = len(engine.timings)
         expected = cfg.depth * n_batches
@@ -562,8 +784,9 @@ def main() -> int:
         if n_batches != SERVE_BATCHES or launches["fused_ln_mlp_ln_fwd"] != expected:
             raise AssertionError("the serving run did not go through the "
                                  "fused kernel once per block per batch")
-        if launches["fused_ln_mlp_ln_bwd"] != 0:
-            raise AssertionError("the serving run launched the backward kernel")
+        if any(launches[k] for k in ("fused_ln_mlp_ln_bwd", "edge_attention_fwd",
+                                     "edge_attention_bwd")):
+            raise AssertionError("the serving run launched a kernel off its path")
         with open(os.path.join(cfg.output_dir, cfg.submodel,
                                "inference_drugs.csv")) as f:
             smiles = [row["SMILES"] for row in csv.DictReader(f)]
@@ -673,6 +896,72 @@ def main() -> int:
               f"{pb_ms:.4f} ms; eager autograd backward of the composite "
               f"{cb_ms:.4f} ms; bound {bound_b_ms:.4f} ms ({bound_b_by}); "
               f"kernel at {100 * bound_b_ms / kb_ms:.1f}% of the bound", flush=True)
+        del s, dout
+        torch.cuda.empty_cache()
+
+        # K5 / K6 at the training shape, bf16
+        acts, aparams, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
+        t_res = fa.edge_attention_fwd(*acts, *aparams, HEADS)[2]
+
+        def k5():
+            fa.edge_attention_fwd(*acts, *aparams, HEADS)
+
+        def k5_plain():
+            fa.edge_attention_fwd_reference(*acts, *aparams, HEADS)
+
+        def k6():
+            fa.edge_attention_bwd(*acts, *aparams[:3], t_res, ge, gn, HEADS)
+
+        def k6_plain():
+            fa.edge_attention_bwd_reference(*acts, *aparams[:3], t_res, ge, gn, HEADS)
+
+        # yardstick: the eager chain that GraphMHA runs without use_pallas
+        # (bf16 Dense, modulate, softmax, aggregate, out_e) and its autograd
+        # backward; no one PyTorch call computes this attention
+        hd = DIM // HEADS
+        cleaves = [t.detach().requires_grad_() for t in
+                   acts + [aparams[0].t().bfloat16(), aparams[1].bfloat16(),
+                           aparams[2].t().bfloat16(), aparams[3].bfloat16()]]
+
+        def composite_fwd():
+            q_, k_, v_, er_, we_, be_, woe_, boe_ = cleaves
+            sh = (TRAIN_BATCH, N_ATOMS, HEADS, hd)
+            e_ = F.linear(er_, we_, be_).reshape(*sh[:2], N_ATOMS, HEADS, hd)
+            at = q_.reshape(sh)[:, :, None] * k_.reshape(sh)[:, None]
+            at = at / math.sqrt(hd) * (e_ + 1.0) * e_
+            eo_ = F.linear(at.reshape(TRAIN_BATCH, N_ATOMS, N_ATOMS, DIM), woe_, boe_)
+            na_ = (torch.softmax(at, dim=2) * v_.reshape(sh)[:, None]).sum(2)
+            return eo_, na_.reshape(TRAIN_BATCH, N_ATOMS, DIM)
+
+        c_out = composite_fwd()
+
+        def composite_bwd():
+            torch.autograd.grad(c_out, cleaves, (ge, gn), retain_graph=True)
+
+        with torch.no_grad():
+            k5_a = cuda_ms(k5, 10)
+            k5_p = cuda_ms(k5_plain, 3, warmup=1)
+            k5_c = cuda_ms(composite_fwd, 10)
+            k5_b = cuda_ms(k5, 10)
+            k6_a = cuda_ms(k6, 10)
+            k6_p = cuda_ms(k6_plain, 2, warmup=1)
+        k6_c = cuda_ms(composite_bwd, 10)
+        k6_b = cuda_ms(k6, 10)
+        k5_ms, k6_ms = (k5_a + k5_b) / 2, (k6_a + k6_b) / 2
+        (bound5, by5, ffma5), (bound6, by6, ffma6) = attn_bounds(
+            TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)
+        print(f"   edge_attention_fwd (K5) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} on "
+              f"{name} ({smi_line}):")
+        print(f"   kernel {k5_ms:.4f} ms (runs {k5_a:.4f}, {k5_b:.4f}); plain "
+              f"{k5_p:.4f} ms; eager composite {k5_c:.4f} ms; bound {bound5:.4f} ms "
+              f"({by5}, 3xTF32; on f32 FMA {ffma5:.4f} ms); kernel at "
+              f"{100 * bound5 / k5_ms:.1f}% of the bound")
+        print(f"   edge_attention_bwd (K6) bf16, same shape:")
+        print(f"   kernel {k6_ms:.4f} ms (runs {k6_a:.4f}, {k6_b:.4f}); plain "
+              f"{k6_p:.4f} ms; eager autograd backward of the composite {k6_c:.4f} ms; "
+              f"bound {bound6:.4f} ms ({by6}, 3xTF32; on f32 FMA {ffma6:.4f} ms); "
+              f"kernel at {100 * bound6 / k6_ms:.1f}% of the bound", flush=True)
+        del acts, aparams, ge, gn, t_res, cleaves, c_out
         torch.cuda.empty_cache()
 
     with phase("7 profile"):
@@ -697,7 +986,7 @@ def main() -> int:
         if not kernels:
             print("   the profiler recorded no device time")
 
-    train = training_phases(name, smi_line, fused_ln_mlp_ln, fused_ln_mlp_ln_bwd)
+    train = training_phases(name, smi_line, counted)
 
     record = {"kernels": [{
         "name": "fused_ln_mlp_ln_fwd",
@@ -728,6 +1017,43 @@ def main() -> int:
         "bound_by": bound_b_by,
         "library_ms": None,
         "eager_autograd_ms": cb_ms,
+    }, {
+        "name": "edge_attention_fwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_attention.cu",
+        "replaces": "druggen_tpu/ops/fused_attention.py:224",
+        "launches": train["launches_pallas"]["edge_attention_fwd"],
+        "launches_by_path": {"serving": launches["edge_attention_fwd"],
+                             "training": train["launches"]["edge_attention_fwd"],
+                             "training_use_pallas":
+                                 train["launches_pallas"]["edge_attention_fwd"]},
+        "max_abs_err": k56["max_abs_err"],
+        "ms": k5_ms,
+        "plain_ms": k5_p,
+        "bound_ms": bound5,
+        "bound_by": by5,
+        "bound_ffma_ms": ffma5,
+        "library_ms": None,
+        "eager_composite_ms": k5_c,
+    }, {
+        "name": "edge_attention_bwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+        "replaces": "druggen_tpu/ops/fused_attention.py:256",
+        "launches": train["launches_pallas"]["edge_attention_bwd"],
+        "launches_by_path": {"serving": launches["edge_attention_bwd"],
+                             "training": train["launches"]["edge_attention_bwd"],
+                             "training_use_pallas":
+                                 train["launches_pallas"]["edge_attention_bwd"]},
+        "max_abs_err": k56["bwd_max_abs_err"],
+        "grad_rel_err": k56["grad_rel_err"],
+        "ms": k6_ms,
+        "plain_ms": k6_p,
+        "bound_ms": bound6,
+        "bound_by": by6,
+        "bound_ffma_ms": ffma6,
+        "library_ms": None,
+        "eager_autograd_ms": k6_c,
     }]}
     print(json.dumps(record))
     print(nvidia_smi_line())

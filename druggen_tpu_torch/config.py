@@ -6,9 +6,11 @@ flag added to each: ``--device`` (default ``cuda``).  ``platform`` is kept so
 that the JAX CLI's command lines parse unchanged; the port ignores it and
 runs on ``device``.  Knobs of the JAX package that the port does not run
 (the parallel modes, ``split_step``, ``steps_per_dispatch > 1``,
-``use_pallas``, ``fused_block``, ``scan_layers``, ``gp_mode=fwdrev``,
-``--features``, ``--resume``) parse and raise ``NotImplementedError`` in the
-trainer.
+``fused_block``, ``scan_layers``, ``gp_mode=fwdrev``, ``--features``,
+``--resume``) parse and raise ``NotImplementedError`` in the trainer;
+``InferenceConfig.use_pallas`` (the whole-generator kernel) raises in the
+engine.  ``TrainConfig.use_pallas`` runs the Generator's attention through
+the fused edge-attention kernels.
 """
 
 from __future__ import annotations

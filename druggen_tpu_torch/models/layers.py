@@ -17,9 +17,10 @@ parameters and returns ``dtype``, and the attention chain runs in the stream
 dtype.  Parameters are stored f32 and named in the reference torch layout
 (``druggen_tpu/interop/torch_ckpt.py``).
 
-The compute dtype, ``fused_mlp`` and ``f32_stats`` are plain attributes of
-the modules, so one set of ``Parameter`` objects runs under several
-numerics (:func:`numerics`), as the JAX step's ``clone(...)``s do.
+The compute dtype, ``fused_mlp``, ``use_pallas`` and ``f32_stats`` are
+plain attributes of the modules, so one set of ``Parameter`` objects runs
+under several numerics (:func:`numerics`), as the JAX step's ``clone(...)``s
+do.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from druggen_tpu_torch.ops.fused_attention import edge_modulated_attention_proj
 from druggen_tpu_torch.ops.fused_mlp import FusedLnMlpLn
 
 
@@ -119,26 +121,41 @@ class GraphMHA(nn.Module):
     ``forward(node [B,N,D], edge [B,N,N,D])`` returns
     ``(node_out [B,N,D], edge_out [B,N,N,D])``; ``edge_out`` is None with
     ``need_edge=False`` (its ``out_e`` readout is skipped).  ``f32_stats``
-    runs the softmax in f32 and casts it back (JAX ``layers.py:221-227``)."""
+    runs the softmax in f32 and casts it back (JAX ``layers.py:221-227``).
+
+    ``use_pallas``: the fused path (JAX ``layers.py:196-215``): q, k, v, the
+    raw edge stream and the f32 ``e`` / ``out_e`` parameters go to
+    :func:`..ops.fused_attention.edge_modulated_attention_proj` (K5 forward,
+    K6 backward where its rule sends the shape; first-order only), then
+    ``out_n``.  Not with ``f32_stats`` (as in JAX)."""
 
     def __init__(self, dim: int, heads: int, dtype=None,
-                 f32_stats: bool = False):
+                 f32_stats: bool = False, use_pallas: bool = False):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
         self.dim = dim
         self.heads = heads
         self.f32_stats = f32_stats
+        self.use_pallas = use_pallas
         for name in ("q", "k", "v", "e", "out_e", "out_n"):
             setattr(self, name, Dense(dim, dim, dtype))
 
     def forward(self, node, edge, need_edge: bool = True):
+        if self.use_pallas and self.f32_stats:
+            raise ValueError("f32_stats requires the plain attention path "
+                             "(use_pallas off), as in the JAX package")
         b, n, c = node.shape
         h = self.heads
         dk = c // h
         q = self.q(node).reshape(b, n, h, dk)
         k = self.k(node).reshape(b, n, h, dk)
         v = self.v(node).reshape(b, n, h, dk)
+        if self.use_pallas:
+            edge_out, node_agg = edge_modulated_attention_proj(
+                q, k, v, edge, self.e.weight.t(), self.e.bias,
+                self.out_e.weight.t(), self.out_e.bias)
+            return self.out_n(node_agg), (edge_out if need_edge else None)
         e = self.e(edge).reshape(b, n, n, h, dk)
         # attn[b,i,j,h,dk] = q_i * k_j / sqrt(dk) * (e_ij + 1) * e_ij
         attn = q[:, :, None] * k[:, None]
@@ -163,17 +180,18 @@ class EncoderBlock(nn.Module):
     tail's dropout is inactive and ``f32_stats`` is off (JAX
     ``layers.py:321-322``).  ``need_edge=False`` skips the edge stream's
     readout and tail and returns ``(x, None)``: the critic's last block,
-    whose edge output nothing reads."""
+    whose edge output nothing reads.  ``use_pallas`` goes to the attention
+    (:class:`GraphMHA`); the fused tail follows it as usual."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False,
-                 f32_stats: bool = False):
+                 f32_stats: bool = False, use_pallas: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
         self.fused_mlp = fused_mlp
         for i in (1, 3, 4, 5, 6):
             setattr(self, f"ln{i}", LayerNorm(dim, dtype))
-        self.attn = GraphMHA(dim, heads, dtype, f32_stats)
+        self.attn = GraphMHA(dim, heads, dtype, f32_stats, use_pallas)
         self.mlp = MLP(dim, dim * mlp_ratio, dim, drop_rate, dtype)
         self.mlp2 = MLP(dim, dim * mlp_ratio, dim, drop_rate, dtype)
 
@@ -207,10 +225,12 @@ class TransformerEncoder(nn.Module):
     """Stack of encoder blocks, unrolled (reference layers.py:195-234)."""
 
     def __init__(self, dim: int, depth: int, heads: int, mlp_ratio: int = 4,
-                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False):
+                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
         self.Encoder_Blocks = nn.ModuleList(
-            EncoderBlock(dim, heads, mlp_ratio, drop_rate, dtype, fused_mlp)
+            EncoderBlock(dim, heads, mlp_ratio, drop_rate, dtype, fused_mlp,
+                         use_pallas=use_pallas)
             for _ in range(depth))
 
     def forward(self, x, y, need_last_edge: bool = True):
@@ -221,18 +241,21 @@ class TransformerEncoder(nn.Module):
 
 
 @contextlib.contextmanager
-def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...):
+def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
+             use_pallas=...):
     """Run ``model`` under other numerics, on the same ``Parameter``
     objects: ``dtype`` (None = the promoted input dtype, i.e. f32) for every
     :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` for every
-    :class:`EncoderBlock`, ``f32_stats`` for every :class:`GraphMHA`.
+    :class:`EncoderBlock`, ``f32_stats`` and ``use_pallas`` for every
+    :class:`GraphMHA`.
     An argument left out keeps the module's own value; all are restored on
     exit.  The counterpart of the JAX step's ``model.clone(...)``."""
     saved = []
     for m in model.modules():
         for attr, value, kinds in (("dtype", dtype, (Dense, LayerNorm)),
                                    ("fused_mlp", fused_mlp, (EncoderBlock,)),
-                                   ("f32_stats", f32_stats, (GraphMHA,))):
+                                   ("f32_stats", f32_stats, (GraphMHA,)),
+                                   ("use_pallas", use_pallas, (GraphMHA,))):
             if value is not ... and isinstance(m, kinds):
                 saved.append((m, attr, getattr(m, attr)))
                 setattr(m, attr, value)

@@ -29,7 +29,7 @@ class _Trunk(nn.Module):
 
     def __init__(self, act: str, edges: int, nodes: int, dropout: float,
                  dim: int, depth: int, heads: int, mlp_ratio: int,
-                 dtype=None, fused_mlp: bool = False):
+                 dtype=None, fused_mlp: bool = False, use_pallas: bool = False):
         super().__init__()
         # node_layers: Linear(nodes,64) act Linear(64,dim) act Dropout
         self.node_layers = nn.Sequential(
@@ -40,7 +40,7 @@ class _Trunk(nn.Module):
             Dense(edges, 64, dtype), get_activation(act),
             Dense(64, dim, dtype), get_activation(act), nn.Dropout(dropout))
         self.TransformerEncoder = TransformerEncoder(
-            dim, depth, heads, mlp_ratio, dropout, dtype, fused_mlp)
+            dim, depth, heads, mlp_ratio, dropout, dtype, fused_mlp, use_pallas)
 
     def trunk(self, z_e, z_n, need_last_edge: bool = True):
         node = self.node_layers(z_n)
@@ -58,14 +58,18 @@ class Generator(_Trunk):
        node_logits [B,N,m_dim], edge_logits [B,N,N,b_dim])``.
 
     Parameters are initialised torch-style from ``generator`` (a fixed seed
-    when none is given); load trained weights with ``load_state_dict``."""
+    when none is given); load trained weights with ``load_state_dict``.
+    ``use_pallas`` runs every block's attention through the fused edge
+    attention (K5/K6, first-order only); the critic never does (JAX
+    ``trainer.py:139-143``)."""
 
     def __init__(self, act: str, vertexes: int, edges: int, nodes: int,
                  dropout: float, dim: int, depth: int, heads: int,
                  mlp_ratio: int, dtype=None, fused_mlp: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_pallas: bool = False):
         super().__init__(act, edges, nodes, dropout, dim, depth, heads,
-                         mlp_ratio, dtype, fused_mlp)
+                         mlp_ratio, dtype, fused_mlp, use_pallas)
         self.vertexes = vertexes
         self.readout_n = Dense(dim, nodes, dtype)
         self.readout_e = Dense(dim, edges, dtype)

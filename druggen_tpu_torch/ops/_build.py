@@ -1,10 +1,13 @@
 """Build a CUDA source into a shared library with ``nvcc`` and cache it.
 
 Each source in ``csrc/`` exposes a plain ``extern "C"`` interface and is
-compiled on its own into ``_build/<stem>-<hash>.so`` (the directory is not
-tracked), keyed by the source bytes and the flags, so an unchanged kernel is
-compiled once per checkout.  The library is loaded with ``ctypes``; no
-PyTorch headers are involved, which keeps a build to seconds.
+compiled on its own into ``_build/<stem>[-<defines>]-<hash>.so`` (the
+directory is not tracked), keyed by the source bytes, the shared headers
+(``csrc/*.cuh``), the flags and the preprocessor defines, so an unchanged
+kernel is compiled once per checkout and per set of defines (a kernel whose
+widths are compile-time constants gets one library for each width it
+meets).  The library is loaded with
+``ctypes``; no PyTorch headers are involved, which keeps a build to seconds.
 """
 
 from __future__ import annotations
@@ -45,19 +48,24 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` (or return the cached library)."""
+def build(name: str, defines=()) -> Built:
+    """Compile ``csrc/<name>.cu`` with ``-D<key>=<value>`` for each item of
+    the dict ``defines``, or return the cached library."""
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    items = sorted(dict(defines).items())
+    flags = [*NVCC_FLAGS, *(f"-D{key}={value}" for key, value in items)]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    tag = "".join(f"-{key}{value}" for key, value in items)
+    lib = BUILD_DIR / f"{name}{tag}-{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return Built(lib, 0.0, log.read_text() if log.exists() else "", True)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([nvcc_path(), *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -69,6 +77,6 @@ def build(name: str) -> Built:
     return Built(lib, seconds, proc.stdout + proc.stderr, False)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
-    return ctypes.CDLL(str(build(name).path))
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` with ``defines`` if needed and load it."""
+    return ctypes.CDLL(str(build(name, defines).path))

@@ -29,8 +29,19 @@
 //
 // Ragged last tile: rows past the end are masked (zeros in, nothing stored).
 //
+// Widths.  C (the stream width) and H (the MLP hidden) are compile-time
+// constants set by the build (-DKERNEL_C=... -DKERNEL_H=..., default 128 and
+// 384); the wrapper builds one library for each width a run meets.  A row is
+// held by one warp, VEC columns a lane at a time in NCH chunks; the products
+// run on 16 x 16 WMMA tiles over C and H padded to multiples of 16 with zeros
+// in shared memory.  The bf16 block stages both weights, so a width runs
+// here only while Smem<bf16>::total fits one SM's 227 KB (232,448 bytes):
+// 230,144 B at 128/384, 70,144 B at 64/192; for a wider width the wrapper
+// raises, naming the limit (fused_ln_mlp_ln_fwd_smem_bytes below is what it
+// reads).  The f32 twin stages no weights.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-//        -Xcompiler -fPIC -o libfused_mlp.so fused_mlp.cu
+//        -Xcompiler -fPIC -DKERNEL_C=128 -DKERNEL_H=384 -o libfused_mlp.so fused_mlp.cu
 // Plain C interface for ctypes; no PyTorch headers.
 
 #include <cuda_bf16.h>
@@ -40,42 +51,61 @@
 #include <cstdint>
 #include <type_traits>
 
+#ifndef KERNEL_C
+#define KERNEL_C 128
+#endif
+#ifndef KERNEL_H
+#define KERNEL_H 384
+#endif
+
 namespace {
 
 using namespace nvcuda;
 
-constexpr int C = 128;                    // stream width (dim)
-constexpr int H = 384;                    // MLP hidden (3 * dim)
+constexpr int C = KERNEL_C;               // stream width (dim)
+constexpr int H = KERNEL_H;               // MLP hidden (mlp_ratio * dim)
+constexpr int CP = (C + 15) / 16 * 16;    // widths padded to WMMA tiles
+constexpr int HP = (H + 15) / 16 * 16;
 constexpr int BM = 16;                    // rows per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = BM / WARPS; // LayerNorm rows owned by a warp
 constexpr float EPS = 1e-5f;
+// A lane holds columns (ch * 32 + lane) * VEC + v of its rows, ch < NCH.
+constexpr int VEC = C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
+constexpr int NCH = (C + 32 * VEC - 1) / (32 * VEC);
+constexpr int HT = HP / 16;               // hidden column tiles
+constexpr int CT = CP / 16;               // output column tiles
+constexpr int NT1 = (HT + WARPS - 1) / WARPS;  // fc1 tiles a warp owns
+constexpr int NT2 = (CT + WARPS - 1) / WARPS;  // fc2 tiles a warp owns
+// Whether every lane's columns and every warp's tiles exist: then the
+// guards below are compile-time constants (true at the published widths).
+constexpr bool kFullRow = C == NCH * 32 * VEC;
+constexpr bool kFullHT = HT % WARPS == 0;
+constexpr bool kFullCT = CT % WARPS == 0;
 
 // Padded leading dimensions (elements): a row shift of 16 bytes keeps the
 // 8-row fragment loads off a single bank group.
-constexpr int LDW1 = C + 8;  // W1^T in shared memory: [H][LDW1]
-constexpr int LDW2 = H + 8;  // W2^T in shared memory: [C][LDW2]
-constexpr int LDX = C + 8;   // rounded LN1 output:    [BM][LDX]
-constexpr int LDH = H + 8;   // rounded hidden:        [BM][LDH]
-constexpr int LDS = C + 4;   // f32 product stage:     [BM][LDS]
+constexpr int LDW1 = CP + 8;  // W1^T in shared memory: [HP][LDW1]
+constexpr int LDW2 = HP + 8;  // W2^T in shared memory: [CP][LDW2]
+constexpr int LDX = CP + 8;   // rounded LN1 output:    [BM][LDX]
+constexpr int LDH = HP + 8;   // rounded hidden:        [BM][LDH]
+constexpr int LDS = CP + 4;   // f32 product stage:     [BM][LDS]
+constexpr int STAGE = BM * LDS > WARPS * 256 ? BM * LDS : WARPS * 256;  // floats
 
-static_assert(C == 32 * 4, "one warp covers a row with 4 columns a lane");
-static_assert(BM % WARPS == 0 && H % (16 * WARPS) == 0 && C == 16 * WARPS,
-              "tile shapes must divide among the warps");
+static_assert(C > 0 && H > 0 && BM % WARPS == 0, "tile shapes must divide among the warps");
 
 template <typename T>
 struct Smem {
   static constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr size_t w1 = kTensorCores ? size_t(H) * LDW1 * sizeof(T) : 0;
-  static constexpr size_t w2 = kTensorCores ? size_t(C) * LDW2 * sizeof(T) : 0;
+  static constexpr size_t w1 = kTensorCores ? size_t(HP) * LDW1 * sizeof(T) : 0;
+  static constexpr size_t w2 = kTensorCores ? size_t(CP) * LDW2 * sizeof(T) : 0;
   static constexpr size_t x = size_t(BM) * LDX * sizeof(T);
   static constexpr size_t h = size_t(BM) * LDH * sizeof(T);
-  static constexpr size_t stage = size_t(BM) * LDS * sizeof(float);
+  static constexpr size_t stage = size_t(STAGE) * sizeof(float);
   static constexpr size_t total = w1 + w2 + x + h + stage;
 };
 
-static_assert(Smem<__nv_bfloat16>::total <= 232448, "bf16 tile exceeds 227 KB");
 static_assert(Smem<__nv_bfloat16>::w1 % 128 == 0 && Smem<__nv_bfloat16>::w2 % 128 == 0 &&
               Smem<__nv_bfloat16>::x % 128 == 0 && Smem<__nv_bfloat16>::h % 128 == 0,
               "shared buffers must stay 128-byte aligned");
@@ -90,29 +120,64 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ float to_float(float v) { return v; }  // the f32 twin's operands
 
-// Four consecutive elements <-> four floats.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// VEC consecutive elements <-> VEC floats.
+__device__ __forceinline__ void loadv(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float* v) {
+  if constexpr (VEC == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else if constexpr (VEC == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
 }
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void storev(float* p, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const uint32_t*>(&a);
-  t.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = t;
+__device__ __forceinline__ void storev(__nv_bfloat16* p, const float* v) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const uint32_t*>(&a);
+    t.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
 }
+
+// First column of chunk `ch` of this lane, and whether the chunk is in the row.
+__device__ __forceinline__ int col_of(int ch, int lane) { return (ch * 32 + lane) * VEC; }
+__device__ __forceinline__ bool col_ok(int ch, int lane) {
+  return kFullRow || col_of(ch, lane) < C;
+}
+__device__ __forceinline__ bool ht_ok(int tile) { return kFullHT || tile < HT; }
+__device__ __forceinline__ bool ct_ok(int tile) { return kFullCT || tile < CT; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -120,30 +185,74 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// LayerNorm of one C-wide row held by a warp, 4 columns per lane, in f32
-// (two-pass variance, as the Pallas kernel's _ln_fwd).
-__device__ __forceinline__ void layer_norm4(float v[4], const float g[4], const float b[4]) {
-  const float mu = warp_sum(v[0] + v[1] + v[2] + v[3]) * (1.0f / C);
-  float d[4];
+// LayerNorm of one C-wide row held by a warp (NCH x VEC columns a lane, zero
+// past the row), in f32 (two-pass variance, as the Pallas kernel's _ln_fwd).
+__device__ __forceinline__ void layer_norm_row(float v[NCH][VEC], const float g[NCH][VEC],
+                                               const float b[NCH][VEC], int lane) {
+  float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = v[i] - mu;
-  const float var = warp_sum(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3]) * (1.0f / C);
-  const float rstd = rsqrtf(var + EPS);
+  for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = d[i] * rstd * g[i] + b[i];
+    for (int i = 0; i < VEC; ++i) s += v[ch][i];
+  const float mu = warp_sum(s) * (1.0f / C);
+  float d[NCH][VEC];
+  float q = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      d[ch][i] = col_ok(ch, lane) ? v[ch][i] - mu : 0.0f;
+      q += d[ch][i] * d[ch][i];
+    }
+  const float rstd = rsqrtf(warp_sum(q) * (1.0f / C) + EPS);
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[ch][i] = d[ch][i] * rstd * g[ch][i] + b[ch][i];
 }
 
-// The 4 columns this lane holds of the warp's rows of row tile `tile`
-// (zeros past the end).
+// The columns this lane holds of the warp's rows of row tile `tile`
+// (zeros past the end of the rows and of the row).
 template <typename T>
 __device__ __forceinline__ void load_rows(const T* __restrict__ s, long long tile, int warp,
-                                          int c0, long long rows, float v[ROWS_PER_WARP][4]) {
+                                          int lane, long long rows,
+                                          float v[ROWS_PER_WARP][NCH][VEC]) {
 #pragma unroll
   for (int j = 0; j < ROWS_PER_WARP; ++j) {
     const long long row = tile * BM + warp * ROWS_PER_WARP + j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[j][i] = 0.0f;
-    if (row < rows) load4(s + row * C + c0, v[j]);
+    for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[j][ch][i] = 0.0f;
+      if (row < rows && col_ok(ch, lane)) loadv(s + row * C + col_of(ch, lane), v[j][ch]);
+    }
+  }
+}
+
+// dst[r * ld + c] = src[r * C_SRC + c] for r < R_SRC, c < C_SRC; zeros for
+// the padded rows r < R_DST and columns c < C_DST.  16-byte copies where the
+// rows allow it.
+template <int R_SRC, int C_SRC, int R_DST, int C_DST, int LD>
+__device__ __forceinline__ void stage_padded(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                             int tid) {
+  if constexpr (C_SRC % 8 == 0) {
+    for (int i = tid; i < R_SRC * (C_SRC / 8); i += THREADS) {
+      const int r = i / (C_SRC / 8), c = (i % (C_SRC / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst + r * LD + c) =
+          *reinterpret_cast<const uint4*>(src + size_t(r) * C_SRC + c);
+    }
+  } else {
+    for (int i = tid; i < R_SRC * C_SRC; i += THREADS)
+      dst[(i / C_SRC) * LD + i % C_SRC] = src[i];
+  }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  if constexpr (C_DST > C_SRC) {
+    for (int r = 0; r < R_DST; ++r)
+      for (int c = C_SRC + tid; c < C_DST; c += THREADS) dst[r * LD + c] = zero;
+  }
+  if constexpr (R_DST > R_SRC) {
+    for (int r = R_SRC; r < R_DST; ++r)
+      for (int c = tid; c < C_SRC; c += THREADS) dst[r * LD + c] = zero;
   }
 }
 
@@ -165,85 +274,93 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c0 = lane * 4;
 
   if constexpr (S::kTensorCores) {
-    // Stage W1^T [H][C] and W2^T [C][H] once per block, 16 bytes a thread.
-    for (int i = tid; i < H * (C / 8); i += THREADS) {
-      const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + r * LDW1 + c) =
-          *reinterpret_cast<const uint4*>(w1t + size_t(r) * C + c);
-    }
-    for (int i = tid; i < C * (H / 8); i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + r * LDW2 + c) =
-          *reinterpret_cast<const uint4*>(w2t + size_t(r) * H + c);
-    }
+    // Stage W1^T [H][C] and W2^T [C][H] once per block, zero-padded to
+    // [HP][CP] and [CP][HP].
+    stage_padded<H, C, HP, CP, LDW1>(w1s, w1t, tid);
+    stage_padded<C, H, CP, HP, LDW2>(w2s, w2t, tid);
+  }
+  // The padded columns of the rounded LN1 output stay zero (the products
+  // read them against zero weights; uninitialised bits could be NaN).
+  if constexpr (CP > C) {  // keep the guard (see fused_mlp_bwd.cu)
+    for (int r = 0; r < BM; ++r)
+      for (int c = C + tid; c < CP; c += THREADS) xs[r * LDX + c] = from_float<T>(0.0f);
   }
 
   // This lane's columns of the LayerNorm parameters and of b2.
-  float rg1[4], rbl1[4], rg2[4], rbl2[4], rb2[4];
+  float rg1[NCH][VEC], rbl1[NCH][VEC], rg2[NCH][VEC], rbl2[NCH][VEC], rb2[NCH][VEC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rg1[i] = g1[c0 + i];
-    rbl1[i] = bl1[c0 + i];
-    rg2[i] = g2[c0 + i];
-    rbl2[i] = bl2[c0 + i];
-    rb2[i] = b2[c0 + i];
-  }
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = col_of(ch, lane) + i;
+      const bool ok = col_ok(ch, lane);
+      rg1[ch][i] = ok ? g1[c] : 0.0f;
+      rbl1[ch][i] = ok ? bl1[c] : 0.0f;
+      rg2[ch][i] = ok ? g2[c] : 0.0f;
+      rbl2[ch][i] = ok ? bl2[c] : 0.0f;
+      rb2[ch][i] = ok ? b2[c] : 0.0f;
+    }
 
   const long long n_tiles = (rows + BM - 1) / BM;
   // This warp's rows of the next tile, loaded one tile ahead so that the
   // device-memory latency hides behind the current tile's products.
-  float sr[ROWS_PER_WARP][4];
-  load_rows(s, blockIdx.x, warp, c0, rows, sr);
+  float sr[ROWS_PER_WARP][NCH][VEC];
+  load_rows(s, blockIdx.x, warp, lane, rows, sr);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * BM;
 
     // ---- 1. LN1 in f32; x kept in registers for the residual, rounded
     //         copy to shared memory for fc1.  Rows past the end are zero.
-    float xr[ROWS_PER_WARP][4];
+    float xr[ROWS_PER_WARP][NCH][VEC];
 #pragma unroll
-    for (int j = 0; j < ROWS_PER_WARP; ++j) {
+    for (int j = 0; j < ROWS_PER_WARP; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) xr[j][i] = sr[j][i];
-    }
-    load_rows(s, tile + gridDim.x, warp, c0, rows, sr);
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) xr[j][ch][i] = sr[j][ch][i];
+    load_rows(s, tile + gridDim.x, warp, lane, rows, sr);
 #pragma unroll
     for (int j = 0; j < ROWS_PER_WARP; ++j) {
       const int r = warp * ROWS_PER_WARP + j;
-      if (row0 + r < rows) layer_norm4(xr[j], rg1, rbl1);  // uniform across the warp
-      store4(xs + r * LDX + c0, xr[j]);
+      if (row0 + r < rows) layer_norm_row(xr[j], rg1, rbl1, lane);  // uniform across the warp
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        if (col_ok(ch, lane)) storev(xs + r * LDX + col_of(ch, lane), xr[j][ch]);
     }
     __syncthreads();
 
-    // ---- 2. h = relu(x @ W1 + b1), rounded to T, into shared memory.
+    // ---- 2. h = relu(x @ W1 + b1), rounded to T, into shared memory
+    //         (zero in the padded hidden columns).
     if constexpr (S::kTensorCores) {
-      constexpr int NT = H / 16 / WARPS;  // output column tiles per warp
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT1];
 #pragma unroll
-      for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
+      for (int t = 0; t < NT1; ++t) wmma::fill_fragment(acc[t], 0.0f);
 #pragma unroll
-      for (int k = 0; k < C; k += 16) {
+      for (int k = 0; k < CP; k += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
         wmma::load_matrix_sync(a, xs + k, LDX);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int n0 = (warp + t * WARPS) * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, w1s + n0 * LDW1 + k, LDW1);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
+        for (int t = 0; t < NT1; ++t) {
+          if (ht_ok(warp + t * WARPS)) {  // uniform across the warp
+            const int n0 = (warp + t * WARPS) * 16;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+            wmma::load_matrix_sync(b, w1s + n0 * LDW1 + k, LDW1);
+            wmma::mma_sync(acc[t], a, b, acc[t]);
+          }
         }
       }
       float* scratch = stage + warp * 256;  // this warp's 16x16 f32 tile
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
+      for (int t = 0; t < NT1; ++t) {
+        if (!ht_ok(warp + t * WARPS)) continue;
         const int n0 = (warp + t * WARPS) * 16;
         wmma::store_matrix_sync(scratch, acc[t], 16, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int r = e >> 4, n = n0 + (e & 15);
-          hs[r * LDH + n] = from_float<T>(fmaxf(scratch[e] + b1[n], 0.0f));
+          hs[r * LDH + n] = from_float<T>(HP == H || n < H ? fmaxf(scratch[e] + b1[n], 0.0f) : 0.0f);
         }
         __syncwarp();
       }
@@ -254,7 +371,7 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
         const T* wrow = w1t + size_t(n) * C;
         float acc = 0.0f;
 #pragma unroll 8
-        for (int k = 0; k < C; ++k) acc = fmaf(float(xrow[k]), float(__ldg(wrow + k)), acc);
+        for (int k = 0; k < C; ++k) acc = fmaf(to_float(xrow[k]), to_float(__ldg(wrow + k)), acc);
         hs[r * LDH + n] = from_float<T>(fmaxf(acc + b1[n], 0.0f));
       }
     }
@@ -262,24 +379,35 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
 
     // ---- 3. m = h @ W2 (b2 is added in the epilogue), f32 into the stage.
     if constexpr (S::kTensorCores) {
-      const int n0 = warp * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-      wmma::fill_fragment(acc0, 0.0f);
-      wmma::fill_fragment(acc1, 0.0f);
 #pragma unroll
-      for (int k = 0; k < H; k += 32) {  // two independent chains
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1f;
-        wmma::load_matrix_sync(a0, hs + k, LDH);
-        wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + k, LDW2);
-        wmma::load_matrix_sync(a1, hs + k + 16, LDH);
-        wmma::load_matrix_sync(b1f, w2s + n0 * LDW2 + k + 16, LDW2);
-        wmma::mma_sync(acc0, a0, b0, acc0);
-        wmma::mma_sync(acc1, a1, b1f, acc1);
+      for (int t = 0; t < NT2; ++t) {
+        if (!ct_ok(warp + t * WARPS)) continue;  // uniform across the warp
+        const int n0 = (warp + t * WARPS) * 16;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+        wmma::fill_fragment(acc0, 0.0f);
+        wmma::fill_fragment(acc1, 0.0f);
+#pragma unroll
+        for (int k = 0; k + 32 <= HP; k += 32) {  // two independent chains
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1f;
+          wmma::load_matrix_sync(a0, hs + k, LDH);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + k, LDW2);
+          wmma::load_matrix_sync(a1, hs + k + 16, LDH);
+          wmma::load_matrix_sync(b1f, w2s + n0 * LDW2 + k + 16, LDW2);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+          wmma::mma_sync(acc1, a1, b1f, acc1);
+        }
+        if constexpr (HP % 32 != 0) {  // the last 16 of the hidden
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0;
+          wmma::load_matrix_sync(a0, hs + HP - 16, LDH);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + HP - 16, LDW2);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+        }
+#pragma unroll
+        for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
+        wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
       }
-#pragma unroll
-      for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
-      wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
     } else {
       for (int e = tid; e < BM * C; e += THREADS) {
         const int r = e / C, n = e % C;
@@ -287,7 +415,7 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
         const T* wrow = w2t + size_t(n) * H;
         float acc = 0.0f;
 #pragma unroll 8
-        for (int k = 0; k < H; ++k) acc = fmaf(float(hrow[k]), float(__ldg(wrow + k)), acc);
+        for (int k = 0; k < H; ++k) acc = fmaf(to_float(hrow[k]), to_float(__ldg(wrow + k)), acc);
         stage[r * LDS + n] = acc;
       }
     }
@@ -299,11 +427,18 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
       const int r = warp * ROWS_PER_WARP + j;
       const long long row = row0 + r;
       if (row < rows) {  // uniform across the warp
-        float v[4];
+        float v[NCH][VEC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = xr[j][i] + (stage[r * LDS + c0 + i] + rb2[i]);
-        layer_norm4(v, rg2, rbl2);
-        store4(out + row * C + c0, v);
+        for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            const int c = col_of(ch, lane) + i;
+            v[ch][i] = col_ok(ch, lane) ? xr[j][ch][i] + (stage[r * LDS + c] + rb2[ch][i]) : 0.0f;
+          }
+        layer_norm_row(v, rg2, rbl2, lane);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch)
+          if (col_ok(ch, lane)) storev(out + row * C + col_of(ch, lane), v[ch]);
       }
     }
     // No barrier needed here: the next tile's first writes (xs, then the
@@ -338,8 +473,9 @@ int launch(const void* s, const void* g1, const void* bl1, const void* w1t, cons
 
 // s, out: [rows, C] in the stream type; w1t: W1^T [H, C] and w2t: W2^T [C, H]
 // in the stream type (nn.Linear layout); LayerNorm parameters and biases f32.
-// Launches on `stream`, does not synchronise, allocates nothing.  Returns the
-// cudaError_t of the launch (0 on success).
+// c and h must be the compiled KERNEL_C and KERNEL_H.  Launches on `stream`,
+// does not synchronise, allocates nothing.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int fused_ln_mlp_ln_fwd_bf16(const void* s, const void* g1, const void* bl1,
                                         const void* w1t, const void* b1, const void* w2t,
                                         const void* b2, const void* g2, const void* bl2,

@@ -55,12 +55,20 @@
 // Ragged last tile: rows past the end are masked (zeros in, nothing stored,
 // nothing summed); the input is not padded.
 //
+// Widths: C and H are compile-time constants set by the build
+// (-DKERNEL_C=... -DKERNEL_H=..., default 128 and 384), as in fused_mlp.cu:
+// the rows pass holds C-wide rows VEC columns a lane at a time and runs its
+// products on WMMA tiles over C and H padded to multiples of 16 (zeros in
+// shared memory); its block stages both bf16 weights, so it runs only while
+// RowSmem<bf16>::total (the same formula as K1's) fits 227 KB.  wgrad covers
+// dW1 [C, H] and dW2 [H, C] with 128 x 128 tiles masked at the edges.
+//
 // The f32 twin (off the training path) multiplies on the CUDA cores with the
 // weights read through L2, like K1's; the backward products read W1^T and
 // W2^T by column, so the interface takes each weight in one orientation.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-//        -Xcompiler -fPIC -o libfused_mlp_bwd.so fused_mlp_bwd.cu
+//        -Xcompiler -fPIC -DKERNEL_C=128 -DKERNEL_H=384 -o libfused_mlp_bwd.so fused_mlp_bwd.cu
 // Plain C interface for ctypes; no PyTorch headers.
 
 #include <cuda_bf16.h>
@@ -70,24 +78,48 @@
 #include <cstdint>
 #include <type_traits>
 
+#ifndef KERNEL_C
+#define KERNEL_C 128
+#endif
+#ifndef KERNEL_H
+#define KERNEL_H 384
+#endif
+
 namespace {
 
 using namespace nvcuda;
 
-constexpr int C = 128;                    // stream width (dim)
-constexpr int H = 384;                    // MLP hidden (3 * dim)
+constexpr int C = KERNEL_C;               // stream width (dim)
+constexpr int H = KERNEL_H;               // MLP hidden (mlp_ratio * dim)
+constexpr int CP = (C + 15) / 16 * 16;    // widths padded to WMMA tiles
+constexpr int HP = (H + 15) / 16 * 16;
 constexpr int BM = 16;                    // rows per tile of the rows pass
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = BM / WARPS; // LayerNorm rows owned by a warp
 constexpr float EPS = 1e-5f;
+// A lane holds columns (ch * 32 + lane) * VEC + v of its rows, ch < NCH.
+constexpr int VEC = C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
+constexpr int NCH = (C + 32 * VEC - 1) / (32 * VEC);
+constexpr int HT = HP / 16;               // hidden column tiles
+constexpr int CT = CP / 16;               // stream column tiles
+constexpr int NT1 = (HT + WARPS - 1) / WARPS;  // hidden tiles a warp owns
+constexpr int NT2 = (CT + WARPS - 1) / WARPS;  // stream tiles a warp owns
+// Whether every lane's columns and every warp's tiles exist: then the
+// guards below are compile-time constants (true at the published widths).
+constexpr bool kFullRow = C == NCH * 32 * VEC;
+constexpr bool kFullHT = HT % WARPS == 0;
+constexpr bool kFullCT = CT % WARPS == 0;
+constexpr int NQ = (H + THREADS - 1) / THREADS;  // hidden units a thread owns (f32)
+constexpr int NDB1 = NT1 > NQ ? NT1 : NQ;
 
 // Padded leading dimensions (elements), as in fused_mlp.cu.
-constexpr int LDW1 = C + 8;  // W1^T in shared memory: [H][LDW1]
-constexpr int LDW2 = H + 8;  // W2^T in shared memory: [C][LDW2]
-constexpr int LDX = C + 8;   // rounded x, then rounded dm:  [BM][LDX]
-constexpr int LDH = H + 8;   // rounded h, then rounded dh:  [BM][LDH]
-constexpr int LDS = C + 4;   // f32 product stage:           [BM][LDS]
+constexpr int LDW1 = CP + 8;  // W1^T in shared memory: [HP][LDW1]
+constexpr int LDW2 = HP + 8;  // W2^T in shared memory: [CP][LDW2]
+constexpr int LDX = CP + 8;   // rounded x, then rounded dm:  [BM][LDX]
+constexpr int LDH = HP + 8;   // rounded h, then rounded dh:  [BM][LDH]
+constexpr int LDS = CP + 4;   // f32 product stage:           [BM][LDS]
+constexpr int STAGE = BM * LDS > WARPS * 256 ? BM * LDS : WARPS * 256;  // floats
 
 // One vector partial: dg1, dbl1, db1, db2, dg2, dbl2.
 constexpr int OFF_DG1 = 0, OFF_DBL1 = C, OFF_DB1 = 2 * C, OFF_DB2 = 2 * C + H,
@@ -98,27 +130,27 @@ constexpr int G_DG1 = 0, G_DBL1 = C, G_DW1 = 2 * C, G_DB1 = 2 * C + C * H,
               G_DW2 = G_DB1 + H, G_DB2 = G_DW2 + H * C, G_DG2 = G_DB2 + C,
               G_DBL2 = G_DG2 + C, G_TOTAL = G_DBL2 + C;
 
-// wgrad: 128 x 128 output tiles, 64-row slabs.
+// wgrad: 128 x 128 output tiles (masked at the edges of dW1 [C, H] and
+// dW2 [H, C]), 64-row slabs.
 constexpr int TILE = 128;
 constexpr int KB = 64;
+constexpr int TC = (C + TILE - 1) / TILE;  // tiles along C
+constexpr int TH = (H + TILE - 1) / TILE;  // tiles along H
+constexpr int TILES = TC * TH;             // output tiles of each weight gradient
 
-static_assert(C == 32 * 4, "one warp covers a row with 4 columns a lane");
-static_assert(BM % WARPS == 0 && H % (16 * WARPS) == 0 && C == 16 * WARPS,
-              "tile shapes must divide among the warps");
-static_assert(C == TILE && H % TILE == 0, "weight gradients split into 128 x 128 tiles");
+static_assert(C > 0 && H > 0 && BM % WARPS == 0, "tile shapes must divide among the warps");
 
 template <typename T>
 struct RowSmem {
   static constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr size_t w1 = kTensorCores ? size_t(H) * LDW1 * sizeof(T) : 0;
-  static constexpr size_t w2 = kTensorCores ? size_t(C) * LDW2 * sizeof(T) : 0;
+  static constexpr size_t w1 = kTensorCores ? size_t(HP) * LDW1 * sizeof(T) : 0;
+  static constexpr size_t w2 = kTensorCores ? size_t(CP) * LDW2 * sizeof(T) : 0;
   static constexpr size_t x = size_t(BM) * LDX * sizeof(T);
   static constexpr size_t h = size_t(BM) * LDH * sizeof(T);
-  static constexpr size_t stage = size_t(BM) * LDS * sizeof(float);
+  static constexpr size_t stage = size_t(STAGE) * sizeof(float);
   static constexpr size_t total = w1 + w2 + x + h + stage;
 };
 
-static_assert(RowSmem<__nv_bfloat16>::total <= 232448, "bf16 tile exceeds 227 KB");
 static_assert(RowSmem<__nv_bfloat16>::w1 % 128 == 0 && RowSmem<__nv_bfloat16>::w2 % 128 == 0 &&
               RowSmem<__nv_bfloat16>::x % 128 == 0 && RowSmem<__nv_bfloat16>::h % 128 == 0,
               "shared buffers must stay 128-byte aligned");
@@ -136,28 +168,62 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Four consecutive elements <-> four floats.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// VEC consecutive elements <-> VEC floats.
+__device__ __forceinline__ void loadv(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float* v) {
+  if constexpr (VEC == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else if constexpr (VEC == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
 }
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void storev(float* p, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const uint32_t*>(&a);
-  t.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = t;
+__device__ __forceinline__ void storev(__nv_bfloat16* p, const float* v) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const uint32_t*>(&a);
+    t.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
 }
+
+// First column of chunk `ch` of this lane, and whether the chunk is in the row.
+__device__ __forceinline__ int col_of(int ch, int lane) { return (ch * 32 + lane) * VEC; }
+__device__ __forceinline__ bool col_ok(int ch, int lane) {
+  return kFullRow || col_of(ch, lane) < C;
+}
+__device__ __forceinline__ bool ht_ok(int tile) { return kFullHT || tile < HT; }
+__device__ __forceinline__ bool ct_ok(int tile) { return kFullCT || tile < CT; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -165,32 +231,80 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// LayerNorm statistics of one C-wide row held by a warp, 4 columns a lane,
-// in f32 (two-pass variance, as the Pallas kernel's _ln_fwd): xhat and rstd.
-__device__ __forceinline__ float ln_stats(const float v[4], float xhat[4]) {
-  const float mu = warp_sum(v[0] + v[1] + v[2] + v[3]) * (1.0f / C);
-  float d[4];
+// LayerNorm statistics of one C-wide row held by a warp (zero past the row),
+// in f32 (two-pass variance, as the Pallas kernel's _ln_fwd): xhat (zero past
+// the row) and rstd.
+__device__ __forceinline__ float ln_stats(const float v[NCH][VEC], float xhat[NCH][VEC], int lane) {
+  float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = v[i] - mu;
-  const float var = warp_sum(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3]) * (1.0f / C);
-  const float rstd = rsqrtf(var + EPS);
+  for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) xhat[i] = d[i] * rstd;
+    for (int i = 0; i < VEC; ++i) s += v[ch][i];
+  const float mu = warp_sum(s) * (1.0f / C);
+  float q = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      xhat[ch][i] = col_ok(ch, lane) ? v[ch][i] - mu : 0.0f;
+      q += xhat[ch][i] * xhat[ch][i];
+    }
+  const float rstd = rsqrtf(warp_sum(q) * (1.0f / C) + EPS);
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) xhat[ch][i] *= rstd;
   return rstd;
 }
 
 // d(input) of y = gamma * xhat + beta given the upstream dy (the Pallas
-// kernel's _ln_bwd_input).
-__device__ __forceinline__ void ln_bwd(const float dy[4], const float xhat[4], float rstd,
-                                       const float g[4], float dx[4]) {
-  float dxh[4];
+// kernel's _ln_bwd_input); zero past the row.
+__device__ __forceinline__ void ln_bwd(const float dy[NCH][VEC], const float xhat[NCH][VEC],
+                                       float rstd, const float g[NCH][VEC], float dx[NCH][VEC],
+                                       int lane) {
+  float dxh[NCH][VEC];
+  float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dxh[i] = dy[i] * g[i];
-  const float m1 = warp_sum(dxh[0] + dxh[1] + dxh[2] + dxh[3]) * (1.0f / C);
-  const float m2 = warp_sum(dxh[0] * xhat[0] + dxh[1] * xhat[1] + dxh[2] * xhat[2] +
-                            dxh[3] * xhat[3]) * (1.0f / C);
+  for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dx[i] = (dxh[i] - m1 - xhat[i] * m2) * rstd;
+    for (int i = 0; i < VEC; ++i) {
+      dxh[ch][i] = dy[ch][i] * g[ch][i];
+      s1 += dxh[ch][i];
+      s2 += dxh[ch][i] * xhat[ch][i];
+    }
+  const float m1 = warp_sum(s1) * (1.0f / C);
+  const float m2 = warp_sum(s2) * (1.0f / C);
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      dx[ch][i] = col_ok(ch, lane) ? (dxh[ch][i] - m1 - xhat[ch][i] * m2) * rstd : 0.0f;
+}
+
+// dst[r * ld + c] = src[r * C_SRC + c] for r < R_SRC, c < C_SRC; zeros for
+// the padded rows r < R_DST and columns c < C_DST (as in fused_mlp.cu).
+template <int R_SRC, int C_SRC, int R_DST, int C_DST, int LD>
+__device__ __forceinline__ void stage_padded(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                             int tid) {
+  if constexpr (C_SRC % 8 == 0) {
+    for (int i = tid; i < R_SRC * (C_SRC / 8); i += THREADS) {
+      const int r = i / (C_SRC / 8), c = (i % (C_SRC / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst + r * LD + c) =
+          *reinterpret_cast<const uint4*>(src + size_t(r) * C_SRC + c);
+    }
+  } else {
+    for (int i = tid; i < R_SRC * C_SRC; i += THREADS)
+      dst[(i / C_SRC) * LD + i % C_SRC] = src[i];
+  }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  if constexpr (C_DST > C_SRC) {
+    for (int r = 0; r < R_DST; ++r)
+      for (int c = C_SRC + tid; c < C_DST; c += THREADS) dst[r * LD + c] = zero;
+  }
+  if constexpr (R_DST > R_SRC) {
+    for (int r = R_SRC; r < R_DST; ++r)
+      for (int c = tid; c < C_SRC; c += THREADS) dst[r * LD + c] = zero;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -217,90 +331,105 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c0 = lane * 4;
-  constexpr int NT = H / 16 / WARPS;  // hidden column tiles a warp owns
 
   if constexpr (S::kTensorCores) {
-    for (int i = tid; i < H * (C / 8); i += THREADS) {
-      const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + r * LDW1 + c) =
-          *reinterpret_cast<const uint4*>(w1t + size_t(r) * C + c);
-    }
-    for (int i = tid; i < C * (H / 8); i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + r * LDW2 + c) =
-          *reinterpret_cast<const uint4*>(w2t + size_t(r) * H + c);
-    }
+    stage_padded<H, C, HP, CP, LDW1>(w1s, w1t, tid);
+    stage_padded<C, H, CP, HP, LDW2>(w2s, w2t, tid);
+  }
+  // The padded columns of x / dm stay zero (see fused_mlp.cu).
+  if constexpr (CP > C) {  // keep the guard: unguarded, this dead loop slowed this kernel
+    for (int r = 0; r < BM; ++r)
+      for (int c = C + tid; c < CP; c += THREADS) xs[r * LDX + c] = from_float<T>(0.0f);
   }
 
-  float rg1[4], rbl1[4], rg2[4], rbl2[4], rb2[4];
+  float rg1[NCH][VEC], rbl1[NCH][VEC], rg2[NCH][VEC], rbl2[NCH][VEC], rb2[NCH][VEC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rg1[i] = g1[c0 + i];
-    rbl1[i] = bl1[c0 + i];
-    rg2[i] = g2[c0 + i];
-    rbl2[i] = bl2[c0 + i];
-    rb2[i] = b2[c0 + i];
-  }
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = col_of(ch, lane) + i;
+      const bool ok = col_ok(ch, lane);
+      rg1[ch][i] = ok ? g1[c] : 0.0f;
+      rbl1[ch][i] = ok ? bl1[c] : 0.0f;
+      rg2[ch][i] = ok ? g2[c] : 0.0f;
+      rbl2[ch][i] = ok ? bl2[c] : 0.0f;
+      rb2[ch][i] = ok ? b2[c] : 0.0f;
+    }
   // This lane's sums over the warp's rows of every tile it visits.
-  float a_dg1[4] = {}, a_dbl1[4] = {}, a_db2[4] = {}, a_dg2[4] = {}, a_dbl2[4] = {};
+  float a_dg1[NCH][VEC] = {}, a_dbl1[NCH][VEC] = {}, a_db2[NCH][VEC] = {}, a_dg2[NCH][VEC] = {},
+        a_dbl2[NCH][VEC] = {};
   // db1: tensor-core path, column (warp + t * WARPS) * 16 + (lane & 15) over
-  // the rows of parity lane >> 4; CUDA-core path, columns tid and tid + 256.
-  float a_db1[NT] = {};
+  // the rows of parity lane >> 4; CUDA-core path, columns tid + q * THREADS.
+  float a_db1[NDB1] = {};
 
   const long long n_tiles = (rows + BM - 1) / BM;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * BM;
 
     // ---- 1. x = LN1(s) in f32; rounded x to shared memory and to x_out.
-    float xv[ROWS_PER_WARP][4], xh1[ROWS_PER_WARP][4], rstd1[ROWS_PER_WARP];
+    float xv[ROWS_PER_WARP][NCH][VEC], xh1[ROWS_PER_WARP][NCH][VEC], rstd1[ROWS_PER_WARP];
 #pragma unroll
     for (int j = 0; j < ROWS_PER_WARP; ++j) {
       const int r = warp * ROWS_PER_WARP + j;
       const long long row = row0 + r;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) xv[j][i] = xh1[j][i] = 0.0f;
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) xv[j][ch][i] = xh1[j][ch][i] = 0.0f;
       rstd1[j] = 0.0f;
       if (row < rows) {  // uniform across the warp
-        float v[4];
-        load4(s + row * C + c0, v);
-        rstd1[j] = ln_stats(v, xh1[j]);
+        float v[NCH][VEC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xv[j][i] = xh1[j][i] * rg1[i] + rbl1[i];
-        store4(x_out + row * C + c0, xv[j]);
+        for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[ch][i] = 0.0f;
+          if (col_ok(ch, lane)) loadv(s + row * C + col_of(ch, lane), v[ch]);
+        }
+        rstd1[j] = ln_stats(v, xh1[j], lane);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) xv[j][ch][i] = xh1[j][ch][i] * rg1[ch][i] + rbl1[ch][i];
+          if (col_ok(ch, lane)) storev(x_out + row * C + col_of(ch, lane), xv[j][ch]);
+        }
       }
-      store4(xs + r * LDX + c0, xv[j]);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        if (col_ok(ch, lane)) storev(xs + r * LDX + col_of(ch, lane), xv[j][ch]);
     }
     __syncthreads();
 
     // ---- 2. h = relu(round(x) @ W1 + b1), rounded, to shared memory and h_out.
     if constexpr (S::kTensorCores) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT1];
 #pragma unroll
-      for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
+      for (int t = 0; t < NT1; ++t) wmma::fill_fragment(acc[t], 0.0f);
 #pragma unroll
-      for (int k = 0; k < C; k += 16) {
+      for (int k = 0; k < CP; k += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
         wmma::load_matrix_sync(a, xs + k, LDX);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int n0 = (warp + t * WARPS) * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, w1s + n0 * LDW1 + k, LDW1);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
+        for (int t = 0; t < NT1; ++t) {
+          if (ht_ok(warp + t * WARPS)) {  // uniform across the warp
+            const int n0 = (warp + t * WARPS) * 16;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+            wmma::load_matrix_sync(b, w1s + n0 * LDW1 + k, LDW1);
+            wmma::mma_sync(acc[t], a, b, acc[t]);
+          }
         }
       }
       float* scratch = stage + warp * 256;  // this warp's 16x16 f32 tile
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
+      for (int t = 0; t < NT1; ++t) {
+        if (!ht_ok(warp + t * WARPS)) continue;
         const int n0 = (warp + t * WARPS) * 16;
         wmma::store_matrix_sync(scratch, acc[t], 16, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int r = e >> 4, n = n0 + (e & 15);
-          const T hv = from_float<T>(fmaxf(scratch[e] + b1[n], 0.0f));
+          const T hv = from_float<T>(HP == H || n < H ? fmaxf(scratch[e] + b1[n], 0.0f) : 0.0f);
           hs[r * LDH + n] = hv;
-          if (row0 + r < rows) h_out[(row0 + r) * H + n] = hv;
+          if ((HP == H || n < H) && row0 + r < rows) h_out[(row0 + r) * H + n] = hv;
         }
         __syncwarp();
       }
@@ -321,24 +450,35 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
 
     // ---- 3. m = round(h) @ W2 (b2 is added below), f32 into the stage.
     if constexpr (S::kTensorCores) {
-      const int n0 = warp * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-      wmma::fill_fragment(acc0, 0.0f);
-      wmma::fill_fragment(acc1, 0.0f);
 #pragma unroll
-      for (int k = 0; k < H; k += 32) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1f;
-        wmma::load_matrix_sync(a0, hs + k, LDH);
-        wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + k, LDW2);
-        wmma::load_matrix_sync(a1, hs + k + 16, LDH);
-        wmma::load_matrix_sync(b1f, w2s + n0 * LDW2 + k + 16, LDW2);
-        wmma::mma_sync(acc0, a0, b0, acc0);
-        wmma::mma_sync(acc1, a1, b1f, acc1);
+      for (int t = 0; t < NT2; ++t) {
+        if (!ct_ok(warp + t * WARPS)) continue;  // uniform across the warp
+        const int n0 = (warp + t * WARPS) * 16;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+        wmma::fill_fragment(acc0, 0.0f);
+        wmma::fill_fragment(acc1, 0.0f);
+#pragma unroll
+        for (int k = 0; k + 32 <= HP; k += 32) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1f;
+          wmma::load_matrix_sync(a0, hs + k, LDH);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + k, LDW2);
+          wmma::load_matrix_sync(a1, hs + k + 16, LDH);
+          wmma::load_matrix_sync(b1f, w2s + n0 * LDW2 + k + 16, LDW2);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+          wmma::mma_sync(acc1, a1, b1f, acc1);
+        }
+        if constexpr (HP % 32 != 0) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0;
+          wmma::load_matrix_sync(a0, hs + HP - 16, LDH);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + HP - 16, LDW2);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+        }
+#pragma unroll
+        for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
+        wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
       }
-#pragma unroll
-      for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
-      wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
     } else {
       for (int e = tid; e < BM * C; e += THREADS) {
         const int r = e / C, n = e % C;
@@ -354,72 +494,95 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
 
     // ---- 4. r = x + (m + b2); dr = LN2'(dout); rounded dm (= dr) over x in
     //         shared memory (x is dead after step 2) and to dm_out.
-    float dr[ROWS_PER_WARP][4];
+    float dr[ROWS_PER_WARP][NCH][VEC];
 #pragma unroll
     for (int j = 0; j < ROWS_PER_WARP; ++j) {
       const int r = warp * ROWS_PER_WARP + j;
       const long long row = row0 + r;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dr[j][i] = 0.0f;
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dr[j][ch][i] = 0.0f;
       if (row < rows) {  // uniform across the warp
-        float rv[4], rhat[4], go[4];
+        float rv[NCH][VEC], rhat[NCH][VEC], go[NCH][VEC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) rv[i] = xv[j][i] + (stage[r * LDS + c0 + i] + rb2[i]);
-        const float rstd2 = ln_stats(rv, rhat);
-        load4(dout + row * C + c0, go);
+        for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a_dg2[i] += go[i] * rhat[i];
-          a_dbl2[i] += go[i];
+          for (int i = 0; i < VEC; ++i)
+            rv[ch][i] = col_ok(ch, lane)
+                            ? xv[j][ch][i] + (stage[r * LDS + col_of(ch, lane) + i] + rb2[ch][i])
+                            : 0.0f;
+        const float rstd2 = ln_stats(rv, rhat, lane);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) go[ch][i] = 0.0f;
+          if (col_ok(ch, lane)) loadv(dout + row * C + col_of(ch, lane), go[ch]);
         }
-        ln_bwd(go, rhat, rstd2, rg2, dr[j]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a_db2[i] += dr[j][i];
-        store4(dm_out + row * C + c0, dr[j]);
+        for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            a_dg2[ch][i] += go[ch][i] * rhat[ch][i];
+            a_dbl2[ch][i] += go[ch][i];
+          }
+        ln_bwd(go, rhat, rstd2, rg2, dr[j], lane);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) a_db2[ch][i] += dr[j][ch][i];
+          if (col_ok(ch, lane)) storev(dm_out + row * C + col_of(ch, lane), dr[j][ch]);
+        }
       }
-      store4(xs + r * LDX + c0, dr[j]);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        if (col_ok(ch, lane)) storev(xs + r * LDX + col_of(ch, lane), dr[j][ch]);
     }
     __syncthreads();
 
     // ---- 5. dh = (round(dm) @ W2^T) * (h > 0), rounded, over h in shared
     //         memory and to dh_out; db1 sums the f32 dh.
     if constexpr (S::kTensorCores) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT1];
 #pragma unroll
-      for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
+      for (int t = 0; t < NT1; ++t) wmma::fill_fragment(acc[t], 0.0f);
 #pragma unroll
-      for (int k = 0; k < C; k += 16) {
+      for (int k = 0; k < CP; k += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
         wmma::load_matrix_sync(a, xs + k, LDX);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int n0 = (warp + t * WARPS) * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, w2s + k * LDW2 + n0, LDW2);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
+        for (int t = 0; t < NT1; ++t) {
+          if (ht_ok(warp + t * WARPS)) {
+            const int n0 = (warp + t * WARPS) * 16;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+            wmma::load_matrix_sync(b, w2s + k * LDW2 + n0, LDW2);
+            wmma::mma_sync(acc[t], a, b, acc[t]);
+          }
         }
       }
       float* scratch = stage + warp * 256;
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
+      for (int t = 0; t < NT1; ++t) {
+        if (!ht_ok(warp + t * WARPS)) continue;
         const int n0 = (warp + t * WARPS) * 16;
         wmma::store_matrix_sync(scratch, acc[t], 16, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int r = e >> 4, n = n0 + (e & 15);
+          // padded hidden units hold h = 0, so their dh is 0
           const float dh = to_float(hs[r * LDH + n]) > 0.0f ? scratch[e] : 0.0f;
           const T dhv = from_float<T>(dh);
           hs[r * LDH + n] = dhv;
           if (row0 + r < rows) {
             a_db1[t] += dh;
-            dh_out[(row0 + r) * H + n] = dhv;
+            if (HP == H || n < H) dh_out[(row0 + r) * H + n] = dhv;
           }
         }
         __syncwarp();
       }
     } else {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < NQ; ++q) {
         const int n = tid + q * THREADS;
         if (n < H) {
           const T* wcol = w2t + n;  // W2[n, k] = W2^T[k, n]
@@ -443,24 +606,35 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
 
     // ---- 6. round(dh) @ W1^T, f32 into the stage.
     if constexpr (S::kTensorCores) {
-      const int n0 = warp * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-      wmma::fill_fragment(acc0, 0.0f);
-      wmma::fill_fragment(acc1, 0.0f);
 #pragma unroll
-      for (int k = 0; k < H; k += 32) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1f;
-        wmma::load_matrix_sync(a0, hs + k, LDH);
-        wmma::load_matrix_sync(b0, w1s + k * LDW1 + n0, LDW1);
-        wmma::load_matrix_sync(a1, hs + k + 16, LDH);
-        wmma::load_matrix_sync(b1f, w1s + (k + 16) * LDW1 + n0, LDW1);
-        wmma::mma_sync(acc0, a0, b0, acc0);
-        wmma::mma_sync(acc1, a1, b1f, acc1);
+      for (int t = 0; t < NT2; ++t) {
+        if (!ct_ok(warp + t * WARPS)) continue;
+        const int n0 = (warp + t * WARPS) * 16;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+        wmma::fill_fragment(acc0, 0.0f);
+        wmma::fill_fragment(acc1, 0.0f);
+#pragma unroll
+        for (int k = 0; k + 32 <= HP; k += 32) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1f;
+          wmma::load_matrix_sync(a0, hs + k, LDH);
+          wmma::load_matrix_sync(b0, w1s + k * LDW1 + n0, LDW1);
+          wmma::load_matrix_sync(a1, hs + k + 16, LDH);
+          wmma::load_matrix_sync(b1f, w1s + (k + 16) * LDW1 + n0, LDW1);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+          wmma::mma_sync(acc1, a1, b1f, acc1);
+        }
+        if constexpr (HP % 32 != 0) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0;
+          wmma::load_matrix_sync(a0, hs + HP - 16, LDH);
+          wmma::load_matrix_sync(b0, w1s + (HP - 16) * LDW1 + n0, LDW1);
+          wmma::mma_sync(acc0, a0, b0, acc0);
+        }
+#pragma unroll
+        for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
+        wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
       }
-#pragma unroll
-      for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
-      wmma::store_matrix_sync(stage + n0, acc0, LDS, wmma::mem_row_major);
     } else {
       for (int e = tid; e < BM * C; e += THREADS) {
         const int r = e / C, n = e % C;
@@ -481,15 +655,21 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
       const int r = warp * ROWS_PER_WARP + j;
       const long long row = row0 + r;
       if (row < rows) {  // uniform across the warp
-        float dx[4], dsv[4];
+        float dx[NCH][VEC], dsv[NCH][VEC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dx[i] = dr[j][i] + stage[r * LDS + c0 + i];
-          a_dg1[i] += dx[i] * xh1[j][i];
-          a_dbl1[i] += dx[i];
-        }
-        ln_bwd(dx, xh1[j], rstd1[j], rg1, dsv);
-        store4(ds + row * C + c0, dsv);
+        for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            dx[ch][i] = col_ok(ch, lane)
+                            ? dr[j][ch][i] + stage[r * LDS + col_of(ch, lane) + i]
+                            : 0.0f;
+            a_dg1[ch][i] += dx[ch][i] * xh1[j][ch][i];
+            a_dbl1[ch][i] += dx[ch][i];
+          }
+        ln_bwd(dx, xh1[j], rstd1[j], rg1, dsv, lane);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch)
+          if (col_ok(ch, lane)) storev(ds + row * C + col_of(ch, lane), dsv[ch]);
       }
     }
     // No barrier needed here: the next tile's first writes (x over dm, then
@@ -500,22 +680,28 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
   //      db1 column is written by exactly one warp of the block).
   float* vp = vec_partial + (size_t(blockIdx.x) * WARPS + warp) * NVEC;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    vp[OFF_DG1 + c0 + i] = a_dg1[i];
-    vp[OFF_DBL1 + c0 + i] = a_dbl1[i];
-    vp[OFF_DB2 + c0 + i] = a_db2[i];
-    vp[OFF_DG2 + c0 + i] = a_dg2[i];
-    vp[OFF_DBL2 + c0 + i] = a_dbl2[i];
+  for (int ch = 0; ch < NCH; ++ch) {
+    if (!col_ok(ch, lane)) continue;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = col_of(ch, lane) + i;
+      vp[OFF_DG1 + c] = a_dg1[ch][i];
+      vp[OFF_DBL1 + c] = a_dbl1[ch][i];
+      vp[OFF_DB2 + c] = a_db2[ch][i];
+      vp[OFF_DG2 + c] = a_dg2[ch][i];
+      vp[OFF_DBL2 + c] = a_dbl2[ch][i];
+    }
   }
   if constexpr (S::kTensorCores) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
+    for (int t = 0; t < NT1; ++t) {
       const float v = a_db1[t] + __shfl_xor_sync(0xffffffffu, a_db1[t], 16);
-      if (lane < 16) vp[OFF_DB1 + (warp + t * WARPS) * 16 + lane] = v;
+      const int n = (warp + t * WARPS) * 16 + lane;
+      if (lane < 16 && ht_ok(warp + t * WARPS) && (HP == H || n < H)) vp[OFF_DB1 + n] = v;
     }
   } else {
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const int n = tid + q * THREADS;
       if (n < H) vp[OFF_DB1 + n] = a_db1[q];
     }
@@ -535,19 +721,33 @@ struct WgradSmem {
   static constexpr size_t slab = size_t(KB) * LDK * sizeof(T);
   static constexpr size_t total = 2 * slab;
 };
+static_assert(WgradSmem<__nv_bfloat16>::slab >= WARPS * 256 * sizeof(float),
+              "the A slab doubles as the warps' f32 output scratch");
 
-// One KB x 128 slab of columns [col0, col0 + 128) of `src` [rows, ld]:
-// rows [r0, r0 + KB) of the chunk, zeros past `r_end`.
+// One KB x 128 slab of columns [col0, col0 + 128) of `src` [rows, ld]: rows
+// [r0, r0 + KB) of the chunk, zeros past `r_end` and past column `ld` (a
+// tile crosses the edge of dW1 / dW2 only where C or H is no multiple of
+// 128).  16-byte loads where both widths allow them.
 template <typename T>
 __device__ __forceinline__ void load_slab(T* dst, const T* __restrict__ src, int ld, int col0,
                                           long long r0, long long r_end, int tid) {
-  constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte load
-  constexpr int PER_ROW = TILE / VEC;
-  for (int i = tid; i < KB * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < r_end) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LDK + c) = v;
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte load
+  constexpr bool kWhole = C % TILE == 0 && H % TILE == 0;
+  if constexpr (C % V == 0 && H % V == 0) {
+    constexpr int PER_ROW = TILE / V;
+    for (int i = tid; i < KB * PER_ROW; i += THREADS) {
+      const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < r_end && (kWhole || col0 + c < ld))
+        v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + col0 + c);
+      *reinterpret_cast<uint4*>(dst + r * LDK + c) = v;
+    }
+  } else {
+    for (int i = tid; i < KB * TILE; i += THREADS) {
+      const int r = i / TILE, c = i % TILE;
+      dst[r * LDK + c] = (r0 + r < r_end && col0 + c < ld) ? src[(r0 + r) * ld + col0 + c]
+                                                          : from_float<T>(0.0f);
+    }
   }
 }
 
@@ -568,8 +768,9 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restri
   const T* b = z == 0 ? dh : dm;
   const int m_dim = z == 0 ? C : H;  // A's width = output rows
   const int n_dim = z == 0 ? H : C;  // B's width = output columns
-  const int tm = z == 0 ? 0 : blockIdx.x;
-  const int tn = z == 0 ? blockIdx.x : 0;
+  const int tn_count = z == 0 ? TH : TC;
+  const int tm = blockIdx.x / tn_count;
+  const int tn = blockIdx.x % tn_count;
   float* out = w_partial + (size_t(z) * chunks + chunk) * (size_t(C) * H);
 
   const long long r_begin = chunk * chunk_rows;
@@ -602,10 +803,27 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restri
       }
       __syncthreads();
     }
+    const int row_base = tm * TILE + warp * 16;
+    if constexpr (C % TILE == 0 && H % TILE == 0) {  // every tile is whole
 #pragma unroll
-    for (int f = 0; f < TILE / 16; ++f) {
-      wmma::store_matrix_sync(out + size_t(tm * TILE + warp * 16) * n_dim + tn * TILE + f * 16,
-                              acc[f], n_dim, wmma::mem_row_major);
+      for (int f = 0; f < TILE / 16; ++f)
+        wmma::store_matrix_sync(out + size_t(row_base) * n_dim + tn * TILE + f * 16, acc[f],
+                                n_dim, wmma::mem_row_major);
+    } else {
+      // Through this warp's 16 x 16 f32 scratch (over the A slab, dead
+      // after the last barrier), masked at the edges of the gradient.
+      const int lane = tid & 31;
+      float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
+#pragma unroll
+      for (int f = 0; f < TILE / 16; ++f) {
+        wmma::store_matrix_sync(scratch, acc[f], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int r = row_base + (e >> 4), c = tn * TILE + f * 16 + (e & 15);
+          if (r < m_dim && c < n_dim) out[size_t(r) * n_dim + c] = scratch[e];
+        }
+        __syncwarp();
+      }
     }
   } else {
     // thread (ty, tx): output rows 8 ty .. 8 ty + 7, columns 8 tx .. 8 tx + 7.
@@ -632,9 +850,12 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restri
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float* o = out + size_t(tm * TILE + ty * 8 + i) * n_dim + tn * TILE + tx * 8;
+      const int r = tm * TILE + ty * 8 + i;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) o[jj] = acc[i][jj];
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = tn * TILE + tx * 8 + jj;
+        if (r < m_dim && c < n_dim) out[size_t(r) * n_dim + c] = acc[i][jj];
+      }
     }
   }
 }
@@ -706,7 +927,7 @@ int launch(const void* s, const void* dout, const void* g1, const void* bl1, con
   err = cudaFuncSetAttribute(wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem_w));
   if (err != cudaSuccess) return int(err);
-  wgrad_kernel<T><<<dim3(H / TILE, unsigned(chunks), 2), THREADS, smem_w, st>>>(
+  wgrad_kernel<T><<<dim3(TILES, unsigned(chunks), 2), THREADS, smem_w, st>>>(
       static_cast<const T*>(x_buf), static_cast<const T*>(h_buf), static_cast<const T*>(dm_buf),
       static_cast<const T*>(dh_buf), static_cast<float*>(w_partial), rows, chunk_rows);
   err = cudaGetLastError();
@@ -721,7 +942,8 @@ int launch(const void* s, const void* dout, const void* g1, const void* bl1, con
 
 // s, dout, ds and the four row buffers x, dm [rows, C] and h, dh [rows, H] in
 // the stream type; w1t = W1^T [H, C] and w2t = W2^T [C, H] in the stream
-// type; LayerNorm parameters and biases f32.
+// type; LayerNorm parameters and biases f32.  c and h must be the compiled
+// KERNEL_C and KERNEL_H.
 // vec_partial: f32 [row_blocks * 8, fused_ln_mlp_ln_bwd_sizes()[0]], zeroed;
 // w_partial: f32 [2, chunks, C * H]; grads: f32 [fused_ln_mlp_ln_bwd_sizes()[1]]
 // (dg1, dbl1, dw1 [C, H], db1, dw2 [H, C], db2, dg2, dbl2).  chunk_rows is a
@@ -750,11 +972,13 @@ extern "C" int fused_ln_mlp_ln_bwd_f32(
                        chunk_rows, stream);
 }
 
-// {floats a vector partial, floats of the gradient buffer, rows a slab}.
-extern "C" void fused_ln_mlp_ln_bwd_sizes(long long out[3]) {
+// {floats a vector partial, floats of the gradient buffer, rows a slab,
+//  output tiles of each weight gradient}.
+extern "C" void fused_ln_mlp_ln_bwd_sizes(long long out[4]) {
   out[0] = NVEC;
   out[1] = G_TOTAL;
   out[2] = KB;
+  out[3] = TILES;
 }
 
 extern "C" long long fused_ln_mlp_ln_bwd_smem_bytes(int bf16) {

@@ -1,0 +1,350 @@
+"""Edge-modulated attention with the edge projections fused, K5 and K6.
+
+Port of the projection-fused (v3) half of ``druggen_tpu/ops/fused_attention.py``.
+The Generator's attention (``models/layers.py`` :class:`GraphMHA`) computes,
+per graph, query atom i, key atom j and channel c (heads x dk):
+
+    e        = edge_raw @ We + be
+    t        = q_i * k_j / sqrt(dk) * (e + 1) * e
+    edge_out = t @ Woe + boe                     (read BEFORE the softmax)
+    node_agg = sum_j softmax_j(t) * v_j          (per channel)
+
+:func:`edge_modulated_attention_proj` runs it in one kernel when the JAX
+package's routing rule sends the shape there (the channel width a multiple
+of 128 and the per-graph block within 10 MiB of the TPU's VMEM: JAX
+``edge_modulated_attention_proj`` :448-466, ``_vmem_estimate_bytes``
+:182-184, copied); any other shape takes :func:`reference_attention_proj`,
+as in JAX.  That rule is the JAX package's own routing, the same on the CPU
+and on the card.
+
+The kernels are ``csrc/fused_attention.cu`` (K5, the Pallas
+``_fwd3_kernel``) and ``csrc/fused_attention_bwd.cu`` (K6, ``_bwd3_kernel``),
+hand-written CUDA for sm_90a; their headers state what bounds them.
+Rounding points, as in the Pallas kernels: q, k, v and edge_raw are widened
+from the stream dtype to f32; We, be, Woe, boe are the f32 parameters; both
+projections are f32 x f32 products with f32 sums; ``edge_out`` and the
+softmax use the f32 ``t``, which is rounded to the stream dtype only for the
+residual; the backward recomputes ``e`` and the softmax from that rounded
+``t``.  Outputs are in the stream dtype, weight gradients in f32.
+
+:class:`EdgeAttentionProj` is the ``torch.autograd.Function`` (JAX
+``_make_proj_op``'s ``custom_vjp``): K5 forward, K6 backward, first-order
+only.  A CPU tensor takes the plain versions in both directions; a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from druggen_tpu_torch.ops import _build
+from druggen_tpu_torch.ops.fused_mlp import SMEM_LIMIT, num_sms
+
+
+# ---------------------------------------------------------------- the rule
+
+def _vmem_estimate_bytes(n: int, d: int, itemsize: int) -> int:
+    """Copied from ``druggen_tpu/ops/fused_attention.py::_vmem_estimate_bytes``."""
+    # e block + f32 working copy + t + outputs + vectors, with slack
+    return n * n * d * (itemsize + 4 + itemsize) + 8 * n * d * 4
+
+
+def uses_kernel(n: int, d: int, dtype) -> bool:
+    """The JAX routing rule (``edge_modulated_attention_proj`` :461-463):
+    the fused op runs at ``d % 128 == 0`` with the per-graph block estimate
+    within 10 MiB; anything else takes the plain composite."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return d % 128 == 0 and _vmem_estimate_bytes(n, d, itemsize) <= 10 * 2 ** 20
+
+
+# ---------------------------------------------------------------- plain math
+
+def reference_attention(q, k, v, e):
+    """Port of JAX ``reference_attention`` (:40-50): q, k, v [B, N, H, dk],
+    e [B, N, N, H, dk] -> (edge_pre [B, N, N, D], node_agg [B, N, D]);
+    differentiable to any order."""
+    b, n, h, dk = q.shape
+    d = h * dk
+    attn = q[:, :, None] * k[:, None, :, :, :]
+    attn = attn / math.sqrt(dk)
+    attn = attn * (e + 1.0) * e
+    edge_pre = attn.reshape(b, n, n, d)
+    s = torch.softmax(attn, dim=2)
+    node_agg = (s * v[:, None, :, :, :]).sum(dim=2).reshape(b, n, d)
+    return edge_pre, node_agg
+
+
+def _matmul(x, w):
+    # jnp's promotion: a bf16 stream times an f32 weight is an f32 product
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def reference_attention_proj(q, k, v, edge_raw, we, be, woe, boe):
+    """Port of JAX ``reference_attention_proj`` (:438-445), with jnp's type
+    promotion (a bf16 stream against the f32 weights computes in f32)."""
+    b, n, h, dk = q.shape
+    d = h * dk
+    e = _matmul(edge_raw.reshape(b, n, n, d), we) + be
+    ep, na = reference_attention(q, k, v, e.reshape(b, n, n, h, dk))
+    edge_out = _matmul(ep, woe) + boe
+    return edge_out, na
+
+
+def _softmax_keys(t):
+    # the Pallas kernels' softmax over the keys (axis 2), f32
+    ex = torch.exp(t - t.amax(dim=2, keepdim=True))
+    return ex / ex.sum(dim=2, keepdim=True)
+
+
+def edge_attention_fwd_reference(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
+    """Plain PyTorch version of K5 (the Pallas ``_fwd3_kernel``), with its
+    rounding points.  q3, k3, v3 [B, N, D]; eraw [B, N, N, D]; we, woe
+    [D, D] ([in, out]); be, boe [D].  Returns ``(edge_out, node_agg, t)`` in
+    q3's dtype."""
+    b, n, d = q3.shape
+    f32, dt = torch.float32, q3.dtype
+    inv = 1.0 / math.sqrt(d // heads)
+    q, k, v = q3.to(f32), k3.to(f32), v3.to(f32)
+    e = (eraw.to(f32).reshape(-1, d) @ we.to(f32) + be.to(f32)).reshape(b, n, n, d)
+    t = (q[:, :, None] * k[:, None]) * inv
+    t = t * (e + 1.0) * e
+    edge_out = (t.reshape(-1, d) @ woe.to(f32) + boe.to(f32)).reshape(b, n, n, d)
+    node = (_softmax_keys(t) * v[:, None]).sum(dim=2)
+    return edge_out.to(dt), node.to(dt), t.to(dt)
+
+
+def edge_attention_bwd_reference(q3, k3, v3, eraw, we, be, woe, t_res, ge, gn,
+                                 heads: int):
+    """Plain PyTorch version of K6 (the Pallas ``_bwd3_kernel``), with its
+    rounding points: ``e`` recomputed in f32, the softmax from the rounded
+    ``t_res``.  Returns ``(dq, dk, dv, d_eraw, dwe, dbe, dwoe, dboe)``: the
+    first four in q3's dtype, the weight gradients in f32 ([in, out])."""
+    b, n, d = q3.shape
+    f32, dt = torch.float32, q3.dtype
+    inv = 1.0 / math.sqrt(d // heads)
+    q, k, v = q3.to(f32), k3.to(f32), v3.to(f32)
+    er = eraw.to(f32).reshape(-1, d)
+    we32 = we.to(f32)
+    e = (er @ we32 + be.to(f32)).reshape(b, n, n, d)
+    t = t_res.to(f32)
+    s = _softmax_keys(t)
+    g_e = ge.to(f32).reshape(-1, d)
+    g_n = gn.to(f32)
+    dwoe = t.reshape(-1, d).t() @ g_e
+    dboe = g_e.sum(0)
+    dtt = (g_e @ woe.to(f32).t()).reshape(b, n, n, d)
+    ds_in = g_n[:, :, None] * v[:, None]
+    dot = (s * ds_in).sum(dim=2, keepdim=True)
+    dtt = dtt + s * (ds_in - dot)
+    base = (q[:, :, None] * k[:, None]) * inv
+    dbase = dtt * ((e + 1.0) * e)
+    de = dtt * base * (2.0 * e + 1.0)
+    de2 = de.reshape(-1, d)
+    dwe = er.t() @ de2
+    dbe = de2.sum(0)
+    d_eraw = (de2 @ we32.t()).reshape(b, n, n, d)
+    dq = (dbase * k[:, None]).sum(dim=2) * inv
+    dk = (dbase * q[:, :, None]).sum(dim=1) * inv
+    dv = (s * g_n[:, :, None]).sum(dim=1)
+    return (dq.to(dt), dk.to(dt), dv.to(dt), d_eraw.to(dt), dwe, dbe, dwoe, dboe)
+
+
+# ---------------------------------------------------------------- kernels
+
+@functools.cache
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention")
+    for fn in (lib.edge_attention_fwd_bf16, lib.edge_attention_fwd_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 11
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.edge_attention_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.edge_attention_fwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention_bwd")
+    for fn in (lib.edge_attention_bwd_bf16, lib.edge_attention_bwd_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 19
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.edge_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.edge_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.edge_attention_bwd_slab_rows.argtypes = []
+    lib.edge_attention_bwd_slab_rows.restype = ctypes.c_int
+    return lib
+
+
+def _device_index(t) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _check_cuda_args(name, q3, k3, v3, eraw, f32_params, stream_extra=()):
+    dt = q3.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes bf16 or f32, got {dt}")
+    b, n, d = q3.shape
+    if not uses_kernel(n, d, dt):
+        raise ValueError(f"{name} kernel: N={n}, D={d}, {dt} is routed to the "
+                         "plain composite by the JAX rule (uses_kernel)")
+    for label, t, shape in (("k3", k3, (b, n, d)), ("v3", v3, (b, n, d)),
+                            ("eraw", eraw, (b, n, n, d)), *stream_extra):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q3.device:
+            raise ValueError(f"{label} is {tuple(t.shape)} {t.dtype} {t.device}, "
+                             f"expected {shape} {dt} {q3.device}")
+    for label, t, shape in f32_params:
+        if tuple(t.shape) != shape or t.device != q3.device:
+            raise ValueError(f"{label} is {tuple(t.shape)} on {t.device}, "
+                             f"expected {shape} on {q3.device}")
+
+
+def edge_attention_fwd(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
+    """K5: ``(edge_out, node_agg, t)`` like
+    :func:`edge_attention_fwd_reference`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (counted in
+    ``edge_attention_fwd.launches``) or raises."""
+    if q3.device.type == "cpu":
+        return edge_attention_fwd_reference(q3, k3, v3, eraw, we, be, woe, boe, heads)
+    if q3.device.type != "cuda":
+        raise ValueError(f"edge_attention_fwd runs on cpu or cuda, not {q3.device}")
+    b, n, d = q3.shape
+    _check_cuda_args("edge_attention_fwd", q3, k3, v3, eraw,
+                     (("we", we, (d, d)), ("be", be, (d,)), ("woe", woe, (d, d)),
+                      ("boe", boe, (d,))))
+    q3, k3, v3, eraw = (x.contiguous() for x in (q3, k3, v3, eraw))
+    we, be, woe, boe = (p.to(torch.float32).contiguous() for p in (we, be, woe, boe))
+    edge_out = torch.empty_like(eraw)
+    t = torch.empty_like(eraw)
+    node = torch.empty_like(q3)
+    index = _device_index(q3)
+    lib = _fwd_lib()
+    if lib.edge_attention_fwd_smem_bytes(n, d) > SMEM_LIMIT:
+        raise ValueError(f"edge_attention_fwd kernel at N={n}, D={d} needs more than "
+                         f"{SMEM_LIMIT:,} B of shared memory")
+    fn = (lib.edge_attention_fwd_bf16 if q3.dtype == torch.bfloat16
+          else lib.edge_attention_fwd_f32)
+    with torch.cuda.device(index):
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), eraw.data_ptr(),
+                 we.data_ptr(), be.data_ptr(), woe.data_ptr(), boe.data_ptr(),
+                 edge_out.data_ptr(), node.data_ptr(), t.data_ptr(), b, n, d,
+                 1.0 / math.sqrt(d // heads), torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"edge_attention_fwd kernel launch failed: CUDA error {err}")
+    edge_attention_fwd.launches += 1
+    return edge_out, node, t
+
+
+edge_attention_fwd.launches = 0
+
+
+def edge_attention_bwd(q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads: int):
+    """K6: ``(dq, dk, dv, d_eraw, dwe, dbe, dwoe, dboe)`` like
+    :func:`edge_attention_bwd_reference`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (counted in
+    ``edge_attention_bwd.launches``) or raises."""
+    if q3.device.type == "cpu":
+        return edge_attention_bwd_reference(q3, k3, v3, eraw, we, be, woe, t_res,
+                                            ge, gn, heads)
+    if q3.device.type != "cuda":
+        raise ValueError(f"edge_attention_bwd runs on cpu or cuda, not {q3.device}")
+    b, n, d = q3.shape
+    _check_cuda_args("edge_attention_bwd", q3, k3, v3, eraw,
+                     (("we", we, (d, d)), ("be", be, (d,)), ("woe", woe, (d, d))),
+                     (("t_res", t_res, (b, n, n, d)), ("ge", ge, (b, n, n, d)),
+                      ("gn", gn, (b, n, d))))
+    q3, k3, v3, eraw, t_res, ge, gn = (x.contiguous() for x in
+                                       (q3, k3, v3, eraw, t_res, ge, gn))
+    f32 = torch.float32
+    we32 = we.to(f32).contiguous()
+    we_t = we.to(f32).t().contiguous()
+    woe_t = woe.to(f32).t().contiguous()
+    be32 = be.to(f32).contiguous()
+    index = _device_index(q3)
+    lib = _bwd_lib()
+    if lib.edge_attention_bwd_smem_bytes(n) > SMEM_LIMIT:
+        raise ValueError(f"edge_attention_bwd kernel at N={n} needs more than "
+                         f"{SMEM_LIMIT:,} B of shared memory")
+    rows = b * n * n
+    slab = lib.edge_attention_bwd_slab_rows()
+    tiles = (d // 128) ** 2
+    # split-K over rows for the weight gradients: 2 x tiles output tiles x
+    # chunks blocks, about two a streaming multiprocessor
+    chunks = max(1, min(-(-rows // slab), (2 * num_sms(index)) // (2 * tiles)))
+    chunk_rows = -(-rows // chunks)
+    chunk_rows = -(-chunk_rows // slab) * slab
+    dev = q3.device
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
+    d_eraw = torch.empty_like(eraw)
+    de_buf = torch.empty(rows, d, dtype=f32, device=dev)
+    bias_partial = torch.empty(b, 2, d, dtype=f32, device=dev)
+    w_partial = torch.empty(2, chunks, d * d, dtype=f32, device=dev)
+    grads = torch.empty(2 * d * d + 2 * d, dtype=f32, device=dev)
+    fn = (lib.edge_attention_bwd_bf16 if q3.dtype == torch.bfloat16
+          else lib.edge_attention_bwd_f32)
+    with torch.cuda.device(index):
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), eraw.data_ptr(),
+                 we32.data_ptr(), we_t.data_ptr(), be32.data_ptr(), woe_t.data_ptr(),
+                 t_res.data_ptr(), ge.data_ptr(), gn.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), d_eraw.data_ptr(), de_buf.data_ptr(),
+                 bias_partial.data_ptr(), w_partial.data_ptr(), grads.data_ptr(),
+                 b, n, d, 1.0 / math.sqrt(d // heads), chunks, chunk_rows,
+                 torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"edge_attention_bwd kernel launch failed: CUDA error {err}")
+    edge_attention_bwd.launches += 1
+    dwe, dbe, dwoe, dboe = torch.split(grads, [d * d, d, d * d, d])
+    return dq, dk, dv, d_eraw, dwe.view(d, d), dbe, dwoe.view(d, d), dboe
+
+
+edge_attention_bwd.launches = 0
+
+
+class EdgeAttentionProj(torch.autograd.Function):
+    """K5 forward, K6 backward (the JAX ``custom_vjp`` of ``_make_proj_op``).
+
+    ``apply(q3, k3, v3, eraw, we, be, woe, boe, heads)`` -> ``(edge_out,
+    node_agg)``.  Saves q3, k3, v3, eraw, we, be, woe and the rounded ``t``;
+    first-order only: a second derivative through it raises."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, eraw, we, be, woe, boe, heads):
+        edge_out, node, t = edge_attention_fwd(q3, k3, v3, eraw, we, be, woe, boe, heads)
+        ctx.save_for_backward(q3, k3, v3, eraw, we, be, woe, t)
+        ctx.heads = heads
+        ctx.boe_dtype = boe.dtype
+        return edge_out, node
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ge, gn):
+        q3, k3, v3, eraw, we, be, woe, t = ctx.saved_tensors
+        dq, dk, dv, d_eraw, dwe, dbe, dwoe, dboe = edge_attention_bwd(
+            q3, k3, v3, eraw, we, be, woe, t, ge.to(q3.dtype), gn.to(q3.dtype), ctx.heads)
+        return (dq, dk, dv, d_eraw, dwe.to(we.dtype), dbe.to(be.dtype),
+                dwoe.to(woe.dtype), dboe.to(ctx.boe_dtype), None)
+
+
+def edge_modulated_attention_proj(q, k, v, edge_raw, we, be, woe, boe):
+    """Fused edge attention (JAX ``edge_modulated_attention_proj``): q, k, v
+    [B, N, H, dk]; edge_raw [B, N, N, D] (the edge stream before the ``e``
+    Dense); we/be and woe/boe the ``e`` and ``out_e`` parameters ([in, out]).
+    Returns ``(edge_out [B, N, N, D], node_agg [B, N, D])``: K5/K6 where
+    :func:`uses_kernel` sends the shape, :func:`reference_attention_proj`
+    elsewhere."""
+    b, n, h, dk = q.shape
+    d = h * dk
+    if not uses_kernel(n, d, q.dtype):
+        return reference_attention_proj(q, k, v, edge_raw, we, be, woe, boe)
+    return EdgeAttentionProj.apply(q.reshape(b, n, d), k.reshape(b, n, d),
+                                   v.reshape(b, n, d), edge_raw, we, be, woe, boe, h)

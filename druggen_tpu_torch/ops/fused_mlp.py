@@ -22,6 +22,17 @@ the 8 parameter gradients in f32.  :class:`FusedLnMlpLn` is the
 ``custom_vjp`` it saves only ``s`` and the parameters and is first-order
 only (its backward is ``once_differentiable``).  A CPU tensor takes the
 plain versions in both directions; a CUDA tensor launches or raises.
+
+Widths.  The kernels take C and H as compile-time constants: each (C, H) a
+run meets is built into its own library at first use.  Their bf16 blocks
+stage both weights in one SM's shared memory, so on the card a width runs
+only while the library's own ``*_smem_bytes`` export fits the 227 KB a block
+may take (``SMEM_LIMIT``): dim 128 with mlp_ratio 3 takes 230,144 B, dim 64
+with mlp_ratio 3 70,144 B; a bf16 tail at dim 128 with mlp_ratio 4 or at dim
+256 does not fit, and its wrapper raises, naming the limit.  The f32 twins
+stage no weights and run any width.  On the CPU the plain versions run at
+every width.  A weight-streaming K1/K2 for the wider bf16 widths is queued
+(``ROADMAP.md`` queue B).
 """
 
 from __future__ import annotations
@@ -36,9 +47,8 @@ from torch.autograd.function import once_differentiable
 from druggen_tpu_torch.ops import _build
 
 _EPS = 1e-5
-# The kernel's compiled widths: dim 128, mlp_ratio 3 (the published config).
-KERNEL_C = 128
-KERNEL_H = 384
+# Dynamic shared memory one block may use on the H100 (227 KB).
+SMEM_LIMIT = 232_448
 
 
 def fused_ln_mlp_ln_reference(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
@@ -181,9 +191,13 @@ def witness_kink_flips(s, params, dout, ds, bad_rows, row_ok):
     return relu_set, bad_rows[~ok]
 
 
+def _widths(c: int, h: int) -> dict:
+    return {"KERNEL_C": c, "KERNEL_H": h}
+
+
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp")
+def _kernel_lib(c: int, h: int) -> ctypes.CDLL:
+    lib = _build.load("fused_mlp", _widths(c, h))
     for fn in (lib.fused_ln_mlp_ln_fwd_bf16, lib.fused_ln_mlp_ln_fwd_f32):
         fn.argtypes = ([ctypes.c_void_p] * 10
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -195,8 +209,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp_bwd")
+def _bwd_lib(c: int, h: int) -> ctypes.CDLL:
+    lib = _build.load("fused_mlp_bwd", _widths(c, h))
     for fn in (lib.fused_ln_mlp_ln_bwd_bf16, lib.fused_ln_mlp_ln_bwd_f32):
         fn.argtypes = ([ctypes.c_void_p] * 18
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -211,7 +225,8 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _num_sms(index: int) -> int:
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -220,9 +235,6 @@ def _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2) -> None:
         raise TypeError(f"fused_ln_mlp_ln kernel takes bf16 or f32, got {s.dtype}")
     c = s.shape[-1]
     hid = w1.shape[-1]
-    if (c, hid) != (KERNEL_C, KERNEL_H):
-        raise ValueError(f"fused_ln_mlp_ln kernel is compiled for C={KERNEL_C}, "
-                         f"H={KERNEL_H}; got C={c}, H={hid}")
     shapes = {"w1": (w1, (c, hid)), "w2": (w2, (hid, c)), "b1": (b1, (hid,)),
               "g1": (g1, (c,)), "bl1": (bl1, (c,)), "b2": (b2, (c,)),
               "g2": (g2, (c,)), "bl2": (bl2, (c,))}
@@ -235,6 +247,13 @@ def _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2) -> None:
         raise ValueError("s must be contiguous")
     if s.data_ptr() % 16:
         raise ValueError("s must be 16-byte aligned")
+
+
+def _check_smem(need: int, s, w1) -> None:
+    if need > SMEM_LIMIT:
+        raise ValueError(f"fused_ln_mlp_ln kernels at C={s.shape[-1]}, H={w1.shape[-1]}, "
+                         f"{s.dtype} need {need:,} B of shared memory a block, over "
+                         f"the {SMEM_LIMIT:,} B an SM gives one")
 
 
 def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
@@ -251,16 +270,17 @@ def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
         raise ValueError(f"fused_ln_mlp_ln runs on cpu or cuda, not {s.device}")
     _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2)
     c = s.shape[-1]
+    dt = s.dtype
+    lib = _kernel_lib(c, w1.shape[-1])
+    _check_smem(lib.fused_ln_mlp_ln_fwd_smem_bytes(int(dt == torch.bfloat16)), s, w1)
     rows = s.numel() // c
     out = torch.empty_like(s)
     if rows == 0:
         return out
-    dt = s.dtype
     w1t = w1.t().to(dt).contiguous()     # W1^T [H, C], nn.Linear layout
     w2t = w2.t().to(dt).contiguous()     # W2^T [C, H]
     g1, bl1, b1, b2, g2, bl2 = (p.to(torch.float32).contiguous()
                                 for p in (g1, bl1, b1, b2, g2, bl2))
-    lib = _kernel_lib()
     fn = (lib.fused_ln_mlp_ln_fwd_bf16 if dt == torch.bfloat16
           else lib.fused_ln_mlp_ln_fwd_f32)
     index = s.device.index if s.device.index is not None else torch.cuda.current_device()
@@ -268,7 +288,7 @@ def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
         err = fn(s.data_ptr(), g1.data_ptr(), bl1.data_ptr(), w1t.data_ptr(),
                  b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), g2.data_ptr(),
                  bl2.data_ptr(), out.data_ptr(), rows, c, w1.shape[-1],
-                 _num_sms(index), torch.cuda.current_stream(index).cuda_stream)
+                 num_sms(index), torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ln_mlp_ln kernel launch failed: CUDA error {err}")
     fused_ln_mlp_ln.launches += 1
@@ -301,16 +321,17 @@ def fused_ln_mlp_ln_bwd(s, g1, bl1, w1, b1, w2, b2, g2, bl2, dout):
     dt = s.dtype
     dev = s.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    lib = _bwd_lib()
-    sizes = (ctypes.c_longlong * 3)()
+    lib = _bwd_lib(c, hid)
+    _check_smem(lib.fused_ln_mlp_ln_bwd_smem_bytes(int(dt == torch.bfloat16)), s, w1)
+    sizes = (ctypes.c_longlong * 4)()
     lib.fused_ln_mlp_ln_bwd_sizes(sizes)
-    n_vec, n_grads, slab = sizes
-    num_sms = _num_sms(index)
+    n_vec, n_grads, slab, w_tiles = sizes
+    sms = num_sms(index)
     tiles = -(-rows // 16)
-    row_blocks = max(1, min(tiles, num_sms * (1 if dt == torch.bfloat16 else 4)))
-    # split-K over rows for the weight gradients: 6 output tiles x chunks
-    # blocks, about two a streaming multiprocessor
-    chunks = max(1, min(-(-rows // slab), (2 * num_sms) // 6))
+    row_blocks = max(1, min(tiles, sms * (1 if dt == torch.bfloat16 else 4)))
+    # split-K over rows for the weight gradients: 2 x w_tiles output tiles x
+    # chunks blocks, about two a streaming multiprocessor
+    chunks = max(1, min(-(-rows // slab), (2 * sms) // (2 * w_tiles)))
     chunk_rows = -(-max(rows, 1) // chunks)
     chunk_rows = -(-chunk_rows // slab) * slab
     w1t = w1.t().to(dt).contiguous()     # W1^T [H, C]

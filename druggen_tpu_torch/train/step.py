@@ -14,13 +14,16 @@ Numerics, per pass, on the same ``Parameter`` objects
 (:func:`druggen_tpu_torch.models.numerics`):
 
 - the Generator in the compute dtype, with its fused edge tail (K1 forward,
-  K2 backward) when ``g_fused``;
+  K2 backward) when ``g_fused`` and its fused edge attention (K5 forward, K6
+  backward) when ``g_pallas`` (JAX: only G is built with ``use_pallas``; the
+  critic never, its penalty pass is differentiated twice);
 - the critic's first-order passes (D-step real and fake, G-step fake) with
   the fused tail when ``fused_critic``;
 - the gradient-penalty pass on the plain critic (it is differentiated
   twice), in f32 with the interpolants cast before differentiation when
   ``gp_f32`` (JAX :185-186, :236-260);
-- ``f32_stats``: softmax in f32 and the fused tails off (JAX :170-181).
+- ``f32_stats``: softmax in f32, the fused tails and the fused attention off
+  (JAX :170-181).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ class TrainStep:
                  node_mode: str = "labels", gp_mode: str = "revrev",
                  share_fake="auto", fused_critic: bool = False,
                  gp_f32: bool = False, f32_stats: bool = False,
+                 g_pallas: bool = False,
                  generator: torch.Generator | None = None):
         if node_mode != "labels":
             raise NotImplementedError("node_mode='dense' (--features) is not "
@@ -78,12 +82,13 @@ class TrainStep:
         lowp = compute_dtype != torch.float32
         f32_stats = bool(f32_stats and lowp)
         self.g_numerics = dict(dtype=dt, fused_mlp=bool(g_fused) and not f32_stats,
-                               f32_stats=f32_stats)
+                               f32_stats=f32_stats,
+                               use_pallas=bool(g_pallas) and not f32_stats)
         self.d_first = dict(dtype=dt, fused_mlp=bool(fused_critic) and not f32_stats,
-                            f32_stats=f32_stats)
+                            f32_stats=f32_stats, use_pallas=False)
         gp32 = bool(gp_f32 and lowp)
         self.d_gp = dict(dtype=None if gp32 else dt, fused_mlp=False,
-                         f32_stats=f32_stats)
+                         f32_stats=f32_stats, use_pallas=False)
         self.gp_cast = torch.float32 if gp32 else None
         g_dropout = _dropout_rate(G)
         if share_fake == "auto":

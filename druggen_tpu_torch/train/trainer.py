@@ -14,11 +14,15 @@ losses stay on the device and are fetched every ``log_flush_steps`` steps
 through the same tiers, each switching precision on the same parameters
 and optimizer state.
 
+``use_pallas`` puts the fused edge attention (K5/K6) on the Generator only;
+the critic is built without it (JAX ``trainer.py:129-143``), and the ladder's
+tiers 2 and 3 switch it off.
+
 Not ported (each raises ``NotImplementedError``): the parallel modes
 (``mesh_*``, ``distributed``), ``split_step``, ``steps_per_dispatch > 1``,
-``use_pallas``, ``fused_block``, ``scan_layers``, ``gp_mode="fwdrev"``,
-``--features`` and ``--resume``; the full-state checkpoints
-(``state_*.msgpack``) are not written.
+``fused_block``, ``scan_layers``, ``gp_mode="fwdrev"``, ``--features`` and
+``--resume``; the full-state checkpoints (``state_*.msgpack``) are not
+written.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def _reject_unported(cfg: TrainConfig) -> None:
         "mesh_data": cfg.mesh_data > 1, "distributed": cfg.distributed,
         "split_step": cfg.split_step,
         "steps_per_dispatch": cfg.steps_per_dispatch > 1,
-        "use_pallas": cfg.use_pallas, "fused_block": cfg.fused_block,
+        "fused_block": cfg.fused_block,
         "scan_layers": cfg.scan_layers, "gp_mode": cfg.gp_mode != "revrev",
         "features": cfg.features, "resume": cfg.resume,
     }
@@ -99,8 +103,11 @@ class Trainer:
                       mlp_ratio=cfg.mlp_ratio,
                       dtype=None if self.compute_dtype == torch.float32
                       else self.compute_dtype)
+        # the fused attention goes to G only: the gradient penalty
+        # differentiates D twice (JAX trainer.py:129-131)
         self.G = Generator(dropout=cfg.dropout, depth=cfg.depth,
-                           fused_mlp=cfg.fused_mlp, generator=init, **common)
+                           fused_mlp=cfg.fused_mlp, use_pallas=cfg.use_pallas,
+                           generator=init, **common)
         self.D = Discriminator(dropout=cfg.ddropout, depth=cfg.ddepth,
                                head_mult=cfg.d_head_mult, generator=init,
                                **common)
@@ -179,10 +186,11 @@ class Trainer:
         cfg = self.cfg
         kw = dict(compute_dtype=self.compute_dtype, g_fused=cfg.fused_mlp,
                   fused_critic=cfg.fused_critic, gp_f32=tier >= 1,
-                  f32_stats=tier >= 2)
+                  f32_stats=tier >= 2, g_pallas=cfg.use_pallas)
         if tier >= 3:
             kw.update(compute_dtype=torch.float32, g_fused=False,
-                      fused_critic=False, gp_f32=False, f32_stats=False)
+                      fused_critic=False, gp_f32=False, f32_stats=False,
+                      g_pallas=False)
         self.step_fn = TrainStep(self.G, self.D, self.g_opt, self.d_opt,
                                  lambda_gp=cfg.lambda_gp, m_dim=self.m_dim,
                                  b_dim=self.b_dim, submodel=cfg.submodel,

@@ -32,20 +32,21 @@ import torch
 from druggen_tpu_torch.ops import fused_mlp as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-C, H = port.KERNEL_C, port.KERNEL_H
+C, H = 128, 384          # the published widths: dim 128, mlp_ratio 3
 
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 stays f32
 
 
-def _params(seed):
+def _params(seed, c=C, h=H):
     rng = np.random.default_rng(seed)
-    p = (rng.normal(size=(C,)) * 0.5 + 1.0, rng.normal(size=(C,)) * 0.1,
-         rng.normal(size=(C, H)) / math.sqrt(C), rng.normal(size=(H,)) * 0.1,
-         rng.normal(size=(H, C)) / math.sqrt(H), rng.normal(size=(C,)) * 0.1,
-         rng.normal(size=(C,)) * 0.5 + 1.0, rng.normal(size=(C,)) * 0.1)
+    p = (rng.normal(size=(c,)) * 0.5 + 1.0, rng.normal(size=(c,)) * 0.1,
+         rng.normal(size=(c, h)) / math.sqrt(c), rng.normal(size=(h,)) * 0.1,
+         rng.normal(size=(h, c)) / math.sqrt(h), rng.normal(size=(c,)) * 0.1,
+         rng.normal(size=(c,)) * 0.5 + 1.0, rng.normal(size=(c,)) * 0.1)
     return [torch.from_numpy(x.astype(np.float32)).cuda() for x in p]
 
 
@@ -97,8 +98,17 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         port.fused_ln_mlp_ln(s.half(), *p)
     with pytest.raises(ValueError, match="contiguous"):
         port.fused_ln_mlp_ln(torch.randn(C, 64, device="cuda").t(), *p)
-    with pytest.raises(ValueError, match="compiled for"):
+    with pytest.raises(ValueError, match="has shape"):
         port.fused_ln_mlp_ln(torch.randn(64, 32, device="cuda"), *p)
+    wide = [torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
+            torch.zeros(256, 768, device="cuda"), torch.zeros(768, device="cuda"),
+            torch.zeros(768, 256, device="cuda"), torch.zeros(256, device="cuda"),
+            torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")]
+    s_wide = torch.randn(64, 256, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_ln_mlp_ln(s_wide, *wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_ln_mlp_ln_bwd(s_wide, *wide, s_wide)
     with pytest.raises(ValueError, match="is on"):
         port.fused_ln_mlp_ln(s, p[0].cpu(), *p[1:])
 
@@ -228,37 +238,95 @@ def test_autograd_function_is_first_order_only():
         torch.autograd.grad(gs.sum(), p[2])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_block_gradients_match_plain_block(dtype):
-    """The edge tail of a fused_mlp block trains on the card: its parameter
-    and input gradients match the plain block's (f32: relative 1e-4; bf16:
-    relative 5e-2, the plain path rounds at its own points)."""
-    _need_card()
+def _fused_vs_plain_block(dim, ratio, dtype):
+    """Forward outputs and input and parameter gradients of one
+    EncoderBlock with the fused tail against the same block without it
+    (f32: relative 1e-4; bf16: relative 5e-2, the plain path rounds at its
+    own points); K1 and K2 launch once each on the fused pass."""
     from druggen_tpu_torch.models.layers import EncoderBlock, init_torch_style_
 
     torch.manual_seed(0)
-    blk = EncoderBlock(C, 8, 3, 0.0, None if dtype == torch.float32 else dtype,
+    blk = EncoderBlock(dim, 8, ratio, 0.0, None if dtype == torch.float32 else dtype,
                        fused_mlp=True)
     init_torch_style_(blk, torch.Generator().manual_seed(0))
     blk = blk.cuda().train()
     g = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(4, 9, C, generator=g, device="cuda").to(dtype)
-    y = torch.randn(4, 9, 9, C, generator=g, device="cuda").to(dtype)
-    w = torch.randn(4, 9, 9, C, generator=g, device="cuda")
-    grads = {}
+    x = torch.randn(4, 9, dim, generator=g, device="cuda").to(dtype)
+    y = torch.randn(4, 9, 9, dim, generator=g, device="cuda").to(dtype)
+    w = torch.randn(4, 9, 9, dim, generator=g, device="cuda")
+    grads, outs = {}, {}
     for fused in (True, False):
         blk.fused_mlp = fused
         xi, yi = x.clone().requires_grad_(), y.clone().requires_grad_()
-        before = port.fused_ln_mlp_ln_bwd.launches
+        before = (port.fused_ln_mlp_ln.launches, port.fused_ln_mlp_ln_bwd.launches)
         xo, yo = blk(xi, yi)
+        outs[fused] = (xo.detach(), yo.detach())
         loss = (yo.float() * w).sum() + xo.float().sum()
         params = list(blk.parameters())
         grads[fused] = torch.autograd.grad(loss, [xi, yi] + params)
-        assert port.fused_ln_mlp_ln_bwd.launches == before + int(fused)
+        assert (port.fused_ln_mlp_ln.launches, port.fused_ln_mlp_ln_bwd.launches) == (
+            before[0] + int(fused), before[1] + int(fused))
     tol = 1e-4 if dtype == torch.float32 else 5e-2
-    for a, b in zip(grads[True], grads[False]):
+    for a, b in zip(outs[True] + grads[True], outs[False] + grads[False]):
         assert _rel_err(a.float(), b.float()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_gradients_match_plain_block(dtype):
+    """The edge tail of a fused_mlp block trains on the card: its outputs and
+    its parameter and input gradients match the plain block's."""
+    _need_card()
+    _fused_vs_plain_block(C, 3, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ratio", [(64, 3), (96, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_at_other_widths_matches_plain_block(dim, ratio, dtype):
+    """K1/K2 built for dim 64 / mlp_ratio 3 and for dim 96 / mlp_ratio 2
+    (96 = 3 x 32 columns: a warp holds a row in 24 lanes) run the fused
+    tail, under the same limits as dim 128."""
+    _need_card()
+    _fused_vs_plain_block(dim, ratio, dtype)
+
+
+@pytest.mark.cuda
+def test_wide_fused_block_raises_in_bf16_and_runs_in_f32():
+    """dim 256 / mlp_ratio 3: the bf16 kernels' block would need more shared
+    memory than an SM gives one, so the fused block raises on the card,
+    naming the limit; the f32 twins stage no weights and run that width
+    under the limits of dim 128."""
+    _need_card()
+    from druggen_tpu_torch.models.layers import EncoderBlock
+
+    blk = EncoderBlock(256, 8, 3, 0.0, torch.bfloat16, fused_mlp=True).cuda()
+    x = torch.randn(2, 5, 256, device="cuda").bfloat16()
+    y = torch.randn(2, 5, 5, 256, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="shared memory"):
+        blk(x, y)
+    _fused_vs_plain_block(256, 3, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(64, 192), (96, 192)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_at_other_widths_match_plain(c, h, dtype):
+    """K1 and K2 at other widths against their plain versions, under the
+    limits of the dim-128 tests above (K2 with the kink witness)."""
+    _need_card()
+    rows = 16 * 512 + 5
+    g = torch.Generator(device="cuda").manual_seed(c + h)
+    s = torch.randn(rows, c, generator=g, device="cuda").to(dtype)
+    dout = torch.randn(rows, c, generator=g, device="cuda").to(dtype)
+    p = _params(c, c, h)
+    out = port.fused_ln_mlp_ln(s, *p)
+    _assert_close(out, port.fused_ln_mlp_ln_reference(s, *p), dtype)
+    got = port.fused_ln_mlp_ln_bwd(s, *p, dout)
+    torch.cuda.synchronize()
+    ref = _witnessed_reference(got, s, p, dout, dtype)
+    _assert_ds_close(got, ref, dtype)
+    _assert_grads_close(got, ref, dtype)
 
 
 @pytest.mark.cuda
@@ -298,3 +366,139 @@ def test_full_width_training_step_runs_through_the_kernels():
     for o, b in zip((g_opt, d_opt), before):
         assert (o.flat - b).abs().max().item() > 0
         assert int(o.state.count) == 1
+
+
+# --- K5 / K6: the fused edge attention -------------------------------------
+# Kernel against its plain version on the same inputs, compared in f32.
+# Outputs: bf16 |err| <= 1e-2 + 2^-7 |ref| (the f32 products are summed in
+# another order, so a value can round to the neighbouring bf16 value), f32
+# 1e-4 + 1e-5 |ref|.  K6's eight gradients by relative norm error, bf16
+# 1e-3, f32 1e-5 (sums over all rows in another order; bf16 reads at most
+# 2.7e-5 on an H100, and a K6 that rounded e, de or its upstream gradient to
+# bf16 would read over 2e-3, test_torch_port_fused_attention.py).
+
+ATTN_SHAPES = [(torch.bfloat16, 8, 45, 128), (torch.float32, 8, 45, 128),
+               (torch.bfloat16, 4, 45, 256), (torch.float32, 2, 45, 384),
+               (torch.bfloat16, 2, 45, 512), (torch.bfloat16, 5, 13, 128),
+               (torch.float32, 3, 50, 128)]
+ATTN_GRADS = ("dq", "dk", "dv", "d_eraw", "dwe", "dbe", "dwoe", "dboe")
+
+
+def _attn_inputs(b, n, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    acts = [r(b, n, d).to(dtype) for _ in range(3)] + [r(b, n, n, d).to(dtype)]
+    params = [r(d, d, scale=d ** -0.5), r(d, scale=0.1), r(d, d, scale=d ** -0.5),
+              r(d, scale=0.1)]
+    return acts, params, (r(b, n, n, d).to(dtype), r(b, n, d).to(dtype))
+
+
+def _attn_close(got, ref, dtype, name):
+    assert got.dtype == ref.dtype and got.shape == ref.shape, name
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2 ** -7,
+                                   msg=name)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d", ATTN_SHAPES)
+def test_attention_fwd_kernel_matches_plain(dtype, b, n, d):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, params, _ = _attn_inputs(b, n, d, dtype, seed=n * d)
+    before = fa.edge_attention_fwd.launches
+    got = fa.edge_attention_fwd(*acts, *params, 8)
+    torch.cuda.synchronize()
+    assert fa.edge_attention_fwd.launches == before + 1
+    ref = fa.edge_attention_fwd_reference(*acts, *params, 8)
+    for name, g_, r_ in zip(("edge_out", "node_agg", "t"), got, ref):
+        assert torch.isfinite(g_.float()).all(), name
+        _attn_close(g_, r_, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d", ATTN_SHAPES)
+def test_attention_bwd_kernel_matches_plain(dtype, b, n, d):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, params, (ge, gn) = _attn_inputs(b, n, d, dtype, seed=n * d + 1)
+    t_res = fa.edge_attention_fwd_reference(*acts, *params, 8)[2]
+    before = fa.edge_attention_bwd.launches
+    got = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, 8)
+    torch.cuda.synchronize()
+    assert fa.edge_attention_bwd.launches == before + 1
+    ref = fa.edge_attention_bwd_reference(*acts, *params[:3], t_res, ge, gn, 8)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    for i, (name, g_, r_) in enumerate(zip(ATTN_GRADS, got, ref)):
+        assert g_.dtype == (dtype if i < 4 else torch.float32), name
+        assert g_.shape == r_.shape and torch.isfinite(g_.float()).all(), name
+        assert _rel_err(g_.float(), r_.float()) <= tol, (name, _rel_err(g_.float(), r_.float()))
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_is_deterministic():
+    """No float atomics: two calls on the same inputs give the same bits."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, params, (ge, gn) = _attn_inputs(16, 45, 128, torch.bfloat16, seed=9)
+    t_res = fa.edge_attention_fwd(*acts, *params, 8)[2]
+    first = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, 8)
+    second = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, 8)
+    for name, a, b in zip(ATTN_GRADS, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_attention_function_is_first_order_only():
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, params, _ = _attn_inputs(2, 9, 128, torch.float32, seed=3)
+    leaves = [t.requires_grad_() for t in acts + params]
+    eo, _ = fa.EdgeAttentionProj.apply(*leaves, 8)
+    (gq,) = torch.autograd.grad(eo.square().sum(), leaves[0], create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(gq.sum(), leaves[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_mha_use_pallas_matches_plain_attention(dtype):
+    """GraphMHA through K5/K6 against the same module on its plain path:
+    outputs and input and parameter gradients (f32: relative 1e-4; bf16:
+    relative 5e-2, the plain bf16 path rounds e, t and the softmax where the
+    kernels keep f32)."""
+    _need_card()
+    from druggen_tpu_torch.models.layers import GraphMHA, init_torch_style_
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    mha = GraphMHA(128, 8, None if dtype == torch.float32 else dtype)
+    init_torch_style_(mha, torch.Generator().manual_seed(0))
+    mha = mha.cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(6, 45, 128, generator=g, device="cuda").to(dtype)
+    y = torch.randn(6, 45, 45, 128, generator=g, device="cuda").to(dtype)
+    wn = torch.randn(6, 45, 128, generator=g, device="cuda")
+    we = torch.randn(6, 45, 45, 128, generator=g, device="cuda")
+    res = {}
+    for fused in (True, False):
+        mha.use_pallas = fused
+        xi, yi = x.clone().requires_grad_(), y.clone().requires_grad_()
+        before = (fa.edge_attention_fwd.launches, fa.edge_attention_bwd.launches)
+        no, eo = mha(xi, yi)
+        loss = (no.float() * wn).sum() + (eo.float() * we).sum()
+        grads = torch.autograd.grad(loss, [xi, yi] + list(mha.parameters()))
+        assert (fa.edge_attention_fwd.launches, fa.edge_attention_bwd.launches) == (
+            before[0] + int(fused), before[1] + int(fused))
+        res[fused] = (no.detach(), eo.detach()) + grads
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, b in zip(res[True], res[False]):
+        assert _rel_err(a.float(), b.float()) <= tol

@@ -19,7 +19,7 @@ from druggen_tpu_torch.ops import fused_mlp as port
 
 torch.set_num_threads(1)
 
-C, H, ROWS = port.KERNEL_C, port.KERNEL_H, 300
+C, H, ROWS = 128, 384, 300     # the published widths: dim 128, mlp_ratio 3
 TIES, TIE_UNIT = 12, 31
 
 

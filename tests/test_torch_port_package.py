@@ -52,6 +52,8 @@ def test_scan_sees_the_whole_package():
     paths = _port_sources()
     assert "chip_smoke.py" in paths
     assert "druggen_tpu_torch/ops/fused_mlp.py" in paths
+    assert "druggen_tpu_torch/ops/fused_attention.py" in paths
+    assert "druggen_tpu_torch/models/layers.py" in paths
     assert "druggen_tpu_torch/infer/engine.py" in paths
     assert "druggen_tpu_torch/train/trainer.py" in paths
     assert "druggen_tpu_torch/train/__main__.py" in paths
