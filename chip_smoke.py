@@ -14,15 +14,19 @@ exits non-zero without printing a result line:
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
-               built for dim 64; K5 (``edge_attention_fwd``) and K6 (its
+               built for dim 64 and for dim 128 with mlp_ratio 4 (weights
+               read through L2); K5 (``edge_attention_fwd``) and K6 (its
                backward) at the training shape, at D 256 and on a ragged N,
-               K6 twice for the same bits.
+               K6 twice for the same bits; K7 (``fused_block_fwd``, the
+               megablock) and K8 (its backward) at the training shape and
+               at N 13, D 256, K8 twice for the same bits.
 4. serving  — the port's ``InferenceEngine.run()`` on the trained r2_scale
                Generator (bf16, fused edge tail), 4 batches of 512 graphs;
                the kernel launch counts of that run are checked.
 5. agree    — kernel path vs the plain bf16 path on one batch (labels).
 6. timing   — each kernel, its plain version and an eager yardstick, CUDA
-               events, beside the card's bound (K1, K2, K5, K6).
+               events, beside the card's bound (K1, K2, also at 128/512;
+               K5, K6, K7, K8).
 7. profile  — one serving forward under torch.profiler: device time by
                kernel and the card's idle share of the forward.
 8. training — the port's ``Trainer`` (what ``python -m
@@ -34,13 +38,19 @@ exits non-zero without printing a result line:
 8p. training with ``--use_pallas`` — the same run with the Generator's
                attention through K5/K6: launch counts of K1, K2, K5 and K6,
                finite losses, moved parameters, the checkpoint served back.
+8b. training with ``--fused_block`` — the same run with every encoder
+               block's edge stream through the megablock (G and the critic's
+               first-order passes): launch counts of K7 and K8 (and none of
+               K1, K2, K5, K6), finite losses, moved parameters, the
+               checkpoint served back.
 9. step agreement — one step from the same state through the kernels and
                through the plain versions, bf16 and f32: losses, every
                gradient of G and D, and the G edge tails' gradients; then the
-               same with ``use_pallas`` (and the G attention's gradients).
+               same with ``use_pallas`` (and the G attention's gradients) and
+               with ``--fused_block`` (against K7/K8's plain versions).
 10. step profile — one training step under torch.profiler, without and
-               with ``use_pallas``: device time by kernel, K1's, K2's, K5's
-               and K6's share, the card's idle share.
+               with ``use_pallas`` and with ``--fused_block``: device time by
+               kernel, each kernel's share, the card's idle share.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -89,6 +99,10 @@ TRAIN_CADENCE = 8           # metrics, samples and G/D export every 8 steps
 # kernel vs plain, compared in f32.  bf16: the sums run in another order and
 # an output of |y| <= 4 is worth ~2 bf16 ulps (2 * 2^-6); f32: order only.
 TOL_BF16_MAX, TOL_BF16_MEAN, TOL_F32_MAX = 3e-2, 2e-3, 1e-4
+# K1 at 128/512 reaches outputs above 4, where one bf16 ulp is 2^-5 =
+# 0.03125: held at 3e-2 + 2^-7 |ref|, the card tests' K1 limit at every
+# width (one rounding flip, nothing more)
+TOL_BF16_WIDE_RTOL = 2 ** -7
 # K2: ds as K1's output (bf16 with rtol 2^-6: dm and dh are rounded on the
 # way), compared row by row.  A hidden unit whose pre-activation lies within
 # rounding of the ReLU kink may take either side of it, in the kernel and in
@@ -120,13 +134,24 @@ PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # each kernel source, with the widths it is built for (K1/K2 take theirs
 # from the build: the published config's and dim 64 with mlp_ratio 3)
 NARROW_DIM, NARROW_HIDDEN, NARROW_ROWS = 64, 192, 200_003
+# dim 128 with mlp_ratio 4: K1/K2's bf16 weights do not fit one SM beside
+# the tile's buffers, so the kernels read them through L2
+WIDE_HIDDEN = 512
+# K7/K8 at the training widths and at D 256 (mlp_ratio 3)
+BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN = 256, 768
 KERNEL_BUILDS = (
     ("fused_mlp", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
     ("fused_mlp_bwd", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
     ("fused_mlp", {"KERNEL_C": NARROW_DIM, "KERNEL_H": NARROW_HIDDEN}),
     ("fused_mlp_bwd", {"KERNEL_C": NARROW_DIM, "KERNEL_H": NARROW_HIDDEN}),
+    ("fused_mlp", {"KERNEL_C": DIM, "KERNEL_H": WIDE_HIDDEN}),
+    ("fused_mlp_bwd", {"KERNEL_C": DIM, "KERNEL_H": WIDE_HIDDEN}),
     ("fused_attention", {}),
     ("fused_attention_bwd", {}),
+    ("fused_block", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
+    ("fused_block_bwd", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
+    ("fused_block", {"KERNEL_C": BLOCK_WIDE_DIM, "KERNEL_H": BLOCK_WIDE_HIDDEN}),
+    ("fused_block_bwd", {"KERNEL_C": BLOCK_WIDE_DIM, "KERNEL_H": BLOCK_WIDE_HIDDEN}),
 )
 GRAD_NAMES = ("dg1", "dbl1", "dw1", "db1", "dw2", "db2", "dg2", "dbl2")
 # K5/K6: the fused edge attention.  8 heads; the training shape, D 256 and
@@ -152,6 +177,24 @@ ATTN_PARAMS = (".attn.",)
 # TFLOP/s).  K5/K6 run FFMA; their bound is the faster of the two.
 PEAK_FFMA_S = 67e12
 PEAK_3XTF32_S = 495e12 / 3
+# K7/K8, the megablock, against their plain versions (compared in f32).  K7's
+# y_out and node_agg as K1's output: bf16 |err| <= 3e-2 + 2^-7 |ref| and mean
+# 2e-3, f32 1e-4 + 1e-5 |ref|.  K8's dq, dk, dv, dy as K6's outputs: bf16
+# 1e-2 + 2^-7 |ref|, f32 1e-4 + 1e-4 |ref| (a longer f32 chain); K8's f32
+# pre-activation is summed in another order than the plain version's, so a
+# hidden unit within rounding of the ReLU kink may take either side: each
+# dy row beyond tolerance must be witnessed so (fused_block.
+# witness_kink_flips), at most MAX_FLIP_ROW_SHARE of the rows, and then
+# every output is held against the plain version with the witnessed
+# settings; the 12 f32 parameter gradients by relative norm error, bf16
+# 1e-3, f32 1e-5, as K6's.  The --fused_block step against the same step
+# through K7/K8's plain versions under TOL_STEP (and TOL_TAIL on G's tails);
+# in f32 also against the plain path.
+BLOCK_SHAPES = ((TRAIN_BATCH, N_ATOMS, DIM, HIDDEN),
+                (64, 13, BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN))
+TOL_BLOCK = {torch.bfloat16: (3e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
+TOL_BLOCK_GRAD = {torch.bfloat16: (1e-2, 2 ** -7), torch.float32: (1e-4, 1e-4)}
+TOL_BLOCK_PARAM_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 
 @contextlib.contextmanager
@@ -196,28 +239,28 @@ def tail_params(gen: torch.Generator, device, c: int = DIM, h: int = HIDDEN) -> 
     return g1, bl1, w1, b1, w2, b2, g2, bl2
 
 
-def tail_bound(rows: int, dtype) -> tuple[float, str]:
+def tail_bound(rows: int, dtype, c: int = DIM, h: int = HIDDEN) -> tuple[float, str]:
     """Least milliseconds the card needs for one fused tail call: each input
     read once and each output written once, against the two products."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * rows * DIM * item            # s in, out
-              + 2 * DIM * HIDDEN * item        # W1, W2
-              + (5 * DIM + HIDDEN) * 4)        # LN params and biases (f32)
-    flops = 2 * 2 * rows * DIM * HIDDEN
+    nbytes = (2 * rows * c * item              # s in, out
+              + 2 * c * h * item               # W1, W2
+              + (5 * c + h) * 4)               # LN params and biases (f32)
+    flops = 2 * 2 * rows * c * h
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def tail_bwd_bound(rows: int, dtype) -> tuple[float, str]:
+def tail_bwd_bound(rows: int, dtype, c: int = DIM, h: int = HIDDEN) -> tuple[float, str]:
     """Least milliseconds for one K2 call: read s and dout, write ds (and
     the weights and the f32 gradients once), against its six products (two
     forward products recomputed, four backward)."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (3 * rows * DIM * item + 2 * DIM * HIDDEN * item
-              + (5 * DIM + HIDDEN) * 4
-              + (2 * DIM * HIDDEN + 6 * DIM + HIDDEN) * 4)
-    flops = 6 * 2 * rows * DIM * HIDDEN
+    nbytes = (3 * rows * c * item + 2 * c * h * item
+              + (5 * c + h) * 4
+              + (2 * c * h + 6 * c + h) * 4)
+    flops = 6 * 2 * rows * c * h
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -281,7 +324,9 @@ def check_bwd_kernel(bwd, reference, witness, params, rows: int, dtype, gen) -> 
             "grad_rel_err": max(rels.values())}
 
 
-def check_kernel(fused, reference, params, rows: int, dtype, gen) -> dict:
+def check_kernel(fused, reference, params, rows: int, dtype, gen, rtol: float = 0.0) -> dict:
+    """K1 against its plain version: bf16 max <= TOL_BF16_MAX + rtol |ref|
+    and mean <= TOL_BF16_MEAN, f32 max <= TOL_F32_MAX."""
     s = torch.randn(rows, params[0].shape[0], generator=gen, device="cuda").to(dtype)
     out_k = fused(s, *params)
     torch.cuda.synchronize()
@@ -296,7 +341,8 @@ def check_kernel(fused, reference, params, rows: int, dtype, gen) -> dict:
     print(f"   K1 C {s.shape[-1]} rows {rows:>9,} {str(dtype):>14}: max |kernel - plain| "
           f"{max_err:.3e}, mean {mean_err:.3e}", flush=True)
     if dtype == torch.bfloat16:
-        ok = max_err <= TOL_BF16_MAX and mean_err <= TOL_BF16_MEAN
+        ok = (bool((err <= TOL_BF16_MAX + rtol * out_p.float().abs()).all())
+              and mean_err <= TOL_BF16_MEAN)
     else:
         ok = max_err <= TOL_F32_MAX
     if not ok:
@@ -387,6 +433,128 @@ def attn_bounds(b: int, n: int, d: int, dtype) -> tuple:
     return tuple(out)
 
 
+def block_inputs(b: int, n: int, d: int, h: int, dtype, gen) -> tuple:
+    """Random K7/K8 inputs: activations in ``dtype``, f32 parameters in
+    ``fused_block.PARAM_NAMES`` order ([in, out]), cotangents in ``dtype``."""
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+    acts = [r(b, n, d).to(dtype) for _ in range(3)] + [r(b, n, n, d).to(dtype)]
+    params = [r(d, d, scale=d ** -0.5), r(d, scale=0.1), r(d, d, scale=d ** -0.5),
+              r(d, scale=0.1), r(d, scale=0.1, shift=1.0), r(d, scale=0.1),
+              r(d, h, scale=d ** -0.5), r(h, scale=0.1), r(h, d, scale=h ** -0.5),
+              r(d, scale=0.1), r(d, scale=0.1, shift=1.0), r(d, scale=0.1)]
+    return acts, params, (r(b, n, n, d).to(dtype), r(b, n, d).to(dtype))
+
+
+def check_block_kernels(fb, b: int, n: int, d: int, h: int, dtype, gen,
+                        twice: bool = False) -> dict:
+    """K7 on y_out and node_agg, and K8 on its 16 gradients (rows of dy
+    beyond tolerance witnessed at the ReLU kink), each against its plain
+    version on the same inputs; ``twice``: K8 run again must give the same
+    bits."""
+    acts, params, cots = block_inputs(b, n, d, h, dtype, gen)
+    got = fb.fused_block_fwd(*acts, *params, HEADS)
+    torch.cuda.synchronize()
+    ref = fb.fused_block_fwd_reference(*acts, *params, HEADS)
+    atol, rtol = TOL_BLOCK[dtype]
+    fwd_err = {}
+    for name, g_, r_ in zip(("y_out", "node_agg"), got, ref):
+        if g_.shape != r_.shape or g_.dtype != dtype or not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"K7 {name}: {g_.shape} {g_.dtype}, or not finite")
+        err = (g_.float() - r_.float()).abs()
+        fwd_err[name] = err.max().item()
+        if not bool((err <= atol + rtol * r_.float().abs()).all()) or (
+                dtype == torch.bfloat16 and err.mean().item() > TOL_BF16_MEAN):
+            raise AssertionError(f"K7 {name} disagrees with its plain version "
+                                 f"({dtype}, B {b} N {n} D {d}): max {fwd_err[name]}, "
+                                 f"mean {err.mean().item()}")
+    del got, ref
+    grads = fb.fused_block_bwd(*acts, *params, *cots, HEADS)
+    torch.cuda.synchronize()
+    ref = fb.fused_block_bwd_reference(*acts, *params, *cots, HEADS)
+    gatol, grtol = TOL_BLOCK_GRAD[dtype]
+
+    def row_ok(a, b_):
+        return ((a.float() - b_.float()).abs() <= gatol + grtol * b_.float().abs()).all(-1)
+
+    rows = b * n * n
+    bad = torch.nonzero(~row_ok(grads[3].reshape(-1, d), ref[3].reshape(-1, d))).flatten()
+    dy_max = (grads[3].float() - ref[3].float()).abs().max().item()
+    n_bad, unexplained = len(bad), []
+    if n_bad:
+        del ref
+        relu_set, unexplained = fb.witness_kink_flips(*acts, params, *cots, HEADS,
+                                                      grads[3], bad, row_ok)
+        ref = fb.fused_block_bwd_reference(*acts, *params, *cots, HEADS, relu_set=relu_set)
+    out_err, rels = {}, {}
+    still = 0
+    for i, (name, g_, r_) in enumerate(zip(fb.GRAD_NAMES, grads, ref)):
+        if not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"K8 {name} is not finite")
+        if i < 4:
+            err = (g_.float() - r_.float()).abs()
+            out_err[name] = err.max().item()
+            still += int((err > gatol + grtol * r_.float().abs()).sum().item())
+        else:
+            rels[name] = rel_err(g_.float(), r_.float())
+    del ref
+    same = None
+    if twice:
+        again = fb.fused_block_bwd(*acts, *params, *cots, HEADS)
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
+    print(f"   K7/K8 B {b} N {n} D {d} H {h} {str(dtype):>14}: K7 max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_err.items())
+          + f"; K8 dy max {dy_max:.3e}, rows beyond tolerance {n_bad} of {rows:,}, "
+          f"witnessed at the kink {n_bad - len(unexplained)}; with the witnessed "
+          f"settings max " + ", ".join(f"{k} {v:.3e}" for k, v in out_err.items())
+          + "; rel. errors " + ", ".join(f"{k} {v:.1e}" for k, v in rels.items())
+          + ("" if same is None else f"; K8 twice, same bits: {same}"), flush=True)
+    if (len(unexplained) or still or n_bad > max(1, int(MAX_FLIP_ROW_SHARE * rows))
+            or max(rels.values()) > TOL_BLOCK_PARAM_REL[dtype]):
+        raise AssertionError(f"K8 disagrees with its plain version ({dtype}, B {b} N {n} "
+                             f"D {d}): {n_bad} dy rows beyond tolerance, unexplained "
+                             f"{list(unexplained[:10])}; {still} elements beyond with the "
+                             f"witnessed settings; parameter gradients {rels}")
+    if same is False:
+        raise AssertionError("K8 gave other bits on a second call")
+    return {"max_abs_err": max(fwd_err.values()), "bwd_max_abs_err": max(out_err.values()),
+            "grad_rel_err": max(rels.values()), "flip_rows": n_bad}
+
+
+def block_bounds(b: int, n: int, d: int, h: int, dtype) -> tuple:
+    """Least milliseconds for one K7 and one K8 call: each input read once
+    and each output written once, against their products.  A product whose
+    operands are both exact in bf16 (in bf16: K7's e, fc1 and fc2, K8's e
+    recompute) at the bf16 rate; every other at full f32 accuracy on the
+    faster route, 3xTF32.  For each kernel ``(bound_ms, bound_by, ffma_ms)``:
+    the bound, and the operations' time on the FMA route the kernels take for
+    their f32-accurate products."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    rows, nodes = b * n * n, b * n
+    w_bytes = (2 * d * d + 2 * d * h) * item + (7 * d + h) * 4
+    grad_bytes = (2 * d * d + 2 * d * h + 7 * d + h) * 4
+    fwd_bytes = (3 * nodes * d + rows * d) * item + w_bytes + (rows * d + nodes * d) * item
+    bwd_bytes = ((4 * nodes * d + 2 * rows * d) * item + w_bytes
+                 + (3 * nodes * d + rows * d) * item + grad_bytes)
+    bf16 = dtype == torch.bfloat16
+    # K7: e (D^2), fc1 and fc2 (D H each) exact in bf16; t @ Woe f32-accurate
+    k7_exact = 2 * rows * (d * d + 2 * d * h) if bf16 else 0
+    k7_f32 = 2 * rows * (2 * d * d + 2 * d * h) - k7_exact
+    # K8: twelve products, 2 R (6 D^2 + 6 D H); the e recompute exact in bf16
+    k8_exact = 2 * rows * d * d if bf16 else 0
+    k8_f32 = 2 * rows * (6 * d * d + 6 * d * h) - k8_exact
+    out = []
+    for nbytes, exact, f32_ops, ffma_ops in (
+            (fwd_bytes, k7_exact, k7_f32, 2 * rows * 2 * d * d),
+            (bwd_bytes, k8_exact, k8_f32, k8_f32)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = (exact / PEAK_FLOPS_S[torch.bfloat16] + f32_ops / PEAK_3XTF32_S) * 1e3
+        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        out.append(bound + (ffma_ops / PEAK_FFMA_S * 1e3,))
+    return tuple(out)
+
+
 def snapshot(opts) -> list:
     """Parameters and optimizer state of each optimizer (copies)."""
     return [(o.flat.clone(), dataclasses.replace(
@@ -403,11 +571,11 @@ def restore(opts, snap) -> None:
 
 
 def training_phases(name: str, smi_line: str, counted: dict) -> dict:
-    """Phases 8-10: the port's Trainer at the full r2_scale config, without
-    and with ``use_pallas``; one step through the kernels against one
-    through the plain versions; one step of each under the profiler.
-    ``counted``: the kernel wrappers by record name (each with its
-    ``launches`` count)."""
+    """Phases 8-10: the port's Trainer at the full r2_scale config, as
+    published, with ``use_pallas`` and with ``fused_block``; one step through
+    the kernels against one through the plain versions; one step of each
+    under the profiler.  ``counted``: the kernel wrappers by record name
+    (each with its ``launches`` count)."""
     from druggen_tpu_torch.chem.vocab import Vocab
     from druggen_tpu_torch.config import InferenceConfig, TrainConfig
     from druggen_tpu_torch.data.dataset import BatchIterator
@@ -424,16 +592,20 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
     with open(TRAIN_VOCAB_JSON) as f:
         vocab = Vocab.from_json(f.read())
 
-    def train_run(use_pallas: bool):
-        """One epoch (16 steps) of the trainer; checks launches, losses,
-        moved parameters and the exported checkpoint served back."""
+    def train_run(mode: str):
+        """One epoch (16 steps) of the trainer as published (``mode``
+        "published"), with ``use_pallas`` ("pallas") or with ``fused_block``
+        ("block"); checks launches, losses, moved parameters and the exported
+        checkpoint served back."""
         # experiments/r2_scale/README.md "Config": batch 512, bf16,
         # --fused_mlp --fused_critic, seed 42; dim 128, depth 1, heads 8
-        sub = os.path.join(tmp.name, "pallas" if use_pallas else "plain")
+        use_pallas, block = mode == "pallas", mode == "block"
+        sub = os.path.join(tmp.name, mode)
         cfg = TrainConfig(
             raw_file=raw, drug_raw_file=DRUG_FILE, submodel="DrugGEN",
             batch_size=TRAIN_BATCH, epoch=1, compute_dtype="bfloat16",
             fused_mlp=True, fused_critic=True, use_pallas=use_pallas,
+            fused_block=block,
             log_sample_step=TRAIN_CADENCE,
             set_seed=True, seed=42, exp_name="chip_smoke",
             mol_data_dir=tmp.name, drug_data_dir=tmp.name,
@@ -456,16 +628,23 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         wall = time.perf_counter() - t0
         launches = {key: fn.launches for key, fn in counted.items()}
         steps = trainer.step
-        tail = cfg.depth + 3 * (cfg.ddepth - 1)
+        tail = 0 if block else cfg.depth + 3 * (cfg.ddepth - 1)
         # one Generator forward a step (share_fake: its graph is kept for
         # the G update) and one backward; the cadence reads that step's
         # logits and runs no forward of its own
         attn = cfg.depth if use_pallas else 0
+        # --fused_block: the megablock in each G block and in each critic
+        # block of the three first-order passes (real, fake, the G step's),
+        # the last block's included (its node output is needed); each is
+        # differentiated once
+        mega = cfg.depth + 3 * cfg.ddepth if block else 0
         expected = {"fused_ln_mlp_ln_fwd": tail * steps, "fused_ln_mlp_ln_bwd": tail * steps,
-                    "edge_attention_fwd": attn * steps, "edge_attention_bwd": attn * steps}
+                    "edge_attention_fwd": attn * steps, "edge_attention_bwd": attn * steps,
+                    "fused_block_fwd": mega * steps, "fused_block_bwd": mega * steps}
         print(f"   launches: {launches} over {steps} steps (expected {expected}: "
               f"K1/K2 G depth + 3 x (critic depth - 1), the critic's last-block "
-              f"edge tail skipped; K5/K6 G depth with use_pallas)")
+              f"edge tail skipped; K5/K6 G depth with use_pallas; with --fused_block "
+              f"K7/K8 G depth + 3 x critic depth and no K1/K2)")
         if steps != TRAIN_MOLECULES // TRAIN_BATCH:
             raise AssertionError(f"{steps} steps, expected one epoch")
         if launches != expected:
@@ -491,7 +670,8 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         steady = statistics.median(windows[2:])
         peak = torch.cuda.max_memory_allocated()
         print(f"   step windows (s): {[round(w, 4) for w in windows]}")
-        print(f"   training{' with use_pallas' if use_pallas else ''} on {name} "
+        label = {"published": "", "pallas": " with use_pallas", "block": " with --fused_block"}
+        print(f"   training{label[mode]} on {name} "
               f"({smi_line}): steady step {steady * 1e3:.2f} "
               f"ms (median window of steps 3-{steps}); training rate "
               f"{TRAIN_BATCH / steady:.1f} graphs/s; peak memory "
@@ -522,11 +702,14 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                                         "peak_gib": peak / 2 ** 30}
 
     with phase("8 training"):
-        trainer, cfg, launches, _ = train_run(False)
+        trainer, cfg, launches, _ = train_run("published")
     with phase("8p training --use_pallas"):
-        trainer_p, _, launches_p, rate_p = train_run(True)
+        trainer_p, _, launches_p, rate_p = train_run("pallas")
+    with phase("8b training --fused_block"):
+        trainer_b, _, launches_b, rate_b = train_run("block")
 
     from druggen_tpu_torch.ops import fused_attention as fa
+    from druggen_tpu_torch.ops import fused_block as fb
 
     @contextlib.contextmanager
     def plain_attention():
@@ -540,10 +723,25 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         finally:
             fa.edge_attention_fwd, fa.edge_attention_bwd = saved
 
-    def agreement(tr, pallas: bool, reference: str, x, a, dx, da):
+    @contextlib.contextmanager
+    def plain_block():
+        """K7/K8's plain versions in place of the kernels (same rounding
+        points), for the step that holds them in the --fused_block step."""
+        saved = fb.fused_block_fwd, fb.fused_block_bwd
+        fb.fused_block_fwd = fb.fused_block_fwd_reference
+        fb.fused_block_bwd = fb.fused_block_bwd_reference
+        try:
+            yield
+        finally:
+            fb.fused_block_fwd, fb.fused_block_bwd = saved
+
+    def agreement(tr, pallas: bool, reference: str, x, a, dx, da, block: bool = False):
         """One step from the same state through the kernels and through a
-        reference: ``"plain path"`` (no kernel: the eager modules) or
-        ``"plain K5/K6"`` (the same step with K5/K6's plain versions)."""
+        reference: ``"plain path"`` (no kernel: the eager modules),
+        ``"plain K5/K6"`` or ``"plain K7/K8"`` (the same step with those
+        kernels' plain versions).  ``block``: the kernels' step is
+        --fused_block's (G and the critic's first-order passes in block
+        mode)."""
         opts = (tr.g_opt, tr.d_opt)
         g_opt = opts[0]
 
@@ -565,17 +763,18 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                 for o in opts:      # record the gradients each update takes
                     o.step = (lambda g, o=o: (grads.append(o.flat_grads(g)),
                                               AdamW.step(o, g)))
-                kernels = fused or reference == "plain K5/K6"
+                kernels = fused or reference in ("plain K5/K6", "plain K7/K8")
+                mode = ("block" if block else True) if kernels else False
                 step = TrainStep(tr.G, tr.D, *opts,
                                  lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
                                  b_dim=tr.b_dim, submodel=cfg.submodel,
-                                 compute_dtype=dtype, g_fused=kernels,
-                                 fused_critic=kernels, g_pallas=kernels and pallas)
+                                 compute_dtype=dtype, g_fused=mode,
+                                 fused_critic=mode, g_pallas=kernels and pallas)
                 for fn in counted.values():
                     fn.launches = 0
+                plain = {"plain K5/K6": plain_attention, "plain K7/K8": plain_block}
                 with contextlib.nullcontext() if fused else (
-                        plain_attention() if reference == "plain K5/K6"
-                        else contextlib.nullcontext()):
+                        plain.get(reference, contextlib.nullcontext)()):
                     out = step(x, a, dx, da, eps=eps)
                 results[fused] = (out["d_loss"].float().item(),
                                   out["g_loss"].float().item(), grads,
@@ -589,21 +788,24 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
             rel_attn = rel_err(grads_k[1][attn], grads_p[1][attn])
             dl = abs(dk - dp) / max(1.0, abs(dp))
             gl = abs(gk - gp) / max(1.0, abs(gp))
-            label = f"{'use_pallas, ' if pallas else ''}kernels vs {reference}"
+            label = (f"{'use_pallas, ' if pallas else ''}{'--fused_block, ' if block else ''}"
+                     f"kernels vs {reference}")
             print(f"   {label} {str(dtype):>14}: d_loss {dk:.6f} / {dp:.6f}; "
                   f"g_loss {gk:.6f} / {gp:.6f}; gradient rel. error "
                   f"D {rel_d:.3e}, G {rel_g:.3e}, G's edge tails {rel_tail:.3e}, "
-                  f"G's attention {rel_attn:.3e}; launches (K1, K2, K5, K6) "
+                  f"G's attention {rel_attn:.3e}; launches (K1, K2, K5, K6, K7, K8) "
                   f"{lk} / {lp}", flush=True)
-            want_k = (1, 1, int(pallas), int(pallas))
-            want_p = (1, 1, 0, 0) if reference == "plain K5/K6" else (0, 0, 0, 0)
+            tails = 0 if block else 1
+            want_k = (tails, tails, int(pallas), int(pallas), int(block), int(block))
+            want_p = {"plain K5/K6": (1, 1, 0, 0, 0, 0)}.get(reference, (0,) * 6)
             if [min(v, 1) for v in lk] != list(want_k) or [min(v, 1) for v in lp] != list(want_p):
                 raise AssertionError(f"launches {lk} / {lp} in the step agreement ({label})")
-            if pallas and reference == "plain path" and dtype == torch.bfloat16:
+            if (pallas or block) and reference == "plain path" and dtype == torch.bfloat16:
                 # information: the plain bf16 path rounds e, t, the softmax and
-                # the tail's input at bf16 where K5/K6 keep f32 (the JAX
-                # package's use_pallas step differs from its XLA step alike);
-                # the kernels are held by the "plain K5/K6" comparison
+                # the tail's input at bf16 where K5/K6 and K7/K8 keep f32 (the
+                # JAX package's fused steps differ from its XLA step alike);
+                # the kernels are held by the comparison with their plain
+                # versions
                 continue
             tol = TOL_STEP[dtype]
             if (max(dl, gl, rel_d, rel_g, rel_attn) > tol or rel_tail > TOL_TAIL[dtype]):
@@ -618,6 +820,8 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         agreement(trainer, False, "plain path", x, a, dx, da)
         agreement(trainer_p, True, "plain K5/K6", x, a, dx, da)
         agreement(trainer_p, True, "plain path", x, a, dx, da)
+        agreement(trainer_b, False, "plain K7/K8", x, a, dx, da, block=True)
+        agreement(trainer_b, False, "plain path", x, a, dx, da, block=True)
 
     def profile_step(step, label: str) -> dict:
         step(x, a, dx, da)
@@ -641,8 +845,11 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
               # K2's three launches (PyTorch has a reduce_kernel of its own)
               "K2": share(("rows_kernel<", "wgrad_kernel<", "reduce_kernel(")),
               "K5": share(("attn_fwd_kernel<",)),
-              "K6": share(("attn_bwd_",))}
-        print(f"   training step{label}, batch {TRAIN_BATCH}, bf16 + fused tails, on "
+              "K6": share(("attn_bwd_",)),
+              "K7": share(("block_fwd_kernel<",)),
+              # K8's three launches
+              "K8": share(("block_bwd_",))}
+        print(f"   training step{label}, batch {TRAIN_BATCH}, bf16, on "
               f"{name} ({smi_line}): {step_ms:.3f} ms (CUDA events, mean of 3); "
               f"kernels {busy:.3f} ms; idle share "
               f"{max(0.0, 1 - busy / step_ms):.3f}; "
@@ -657,10 +864,12 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
     with phase("10 step profile"):
         profile_step(trainer.step_fn, "")
         prof_p = profile_step(trainer_p.step_fn, " with use_pallas (K5/K6 in G)")
-    del trainer, trainer_p
+        prof_b = profile_step(trainer_b.step_fn, " with --fused_block (K7/K8)")
+    del trainer, trainer_p, trainer_b
     tmp.cleanup()
-    return {"launches": launches, "launches_pallas": launches_p,
-            "pallas_rate": rate_p, "pallas_profile": prof_p}
+    return {"launches": launches, "launches_pallas": launches_p, "launches_block": launches_b,
+            "pallas_rate": rate_p, "pallas_profile": prof_p, "block_rate": rate_b,
+            "block_profile": prof_b}
 
 
 def main() -> int:
@@ -674,6 +883,7 @@ def main() -> int:
     from druggen_tpu_torch.infer.engine import InferenceEngine
     from druggen_tpu_torch.ops import _build
     from druggen_tpu_torch.ops import fused_attention as fa
+    from druggen_tpu_torch.ops import fused_block as fb
     from druggen_tpu_torch.ops.fused_mlp import (
         _bwd_lib,
         _kernel_lib,
@@ -703,22 +913,33 @@ def main() -> int:
             for line in b.log.splitlines():
                 if "registers" in line or "Compiling entry" in line:
                     print(f"   {line.strip()}")
-        for c, h in ((DIM, HIDDEN), (NARROW_DIM, NARROW_HIDDEN)):
+        for c, h in ((DIM, HIDDEN), (NARROW_DIM, NARROW_HIDDEN), (DIM, WIDE_HIDDEN)):
             lib, blib = _kernel_lib(c, h), _bwd_lib(c, h)
             for bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
                 sizes = (lib.fused_ln_mlp_ln_fwd_smem_bytes(bf16),
                          blib.fused_ln_mlp_ln_bwd_smem_bytes(bf16))
+                staged = (lib.fused_ln_mlp_ln_fwd_stages_weights(bf16),
+                          blib.fused_ln_mlp_ln_bwd_stages_weights(bf16))
                 print(f"   fused_mlp C {c} H {h} {dtype}: dynamic shared memory "
-                      f"K1 {sizes[0]} B, K2 rows pass {sizes[1]} B a block")
+                      f"K1 {sizes[0]} B, K2 rows pass {sizes[1]} B a block; weights "
+                      f"{'staged' if all(staged) else 'read through L2'}")
         alib, ablib = fa._fwd_lib(), fa._bwd_lib()
         print(f"   fused_attention dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
               f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
-              f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block", flush=True)
+              f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block")
+        for c, h in ((DIM, HIDDEN), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN)):
+            print(f"   fused_block C {c} H {h} dynamic shared memory at N {N_ATOMS}: K7 "
+                  f"bf16 {fb._fwd_lib(c, h).fused_block_fwd_smem_bytes(N_ATOMS, 1)} B, "
+                  f"f32 {fb._fwd_lib(c, h).fused_block_fwd_smem_bytes(N_ATOMS, 0)} B; K8 "
+                  f"rows pass {fb._bwd_lib(c, h).fused_block_bwd_smem_bytes()} B a block",
+                  flush=True)
 
     counted = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln,
                "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd,
                "edge_attention_fwd": fa.edge_attention_fwd,
-               "edge_attention_bwd": fa.edge_attention_bwd}
+               "edge_attention_bwd": fa.edge_attention_bwd,
+               "fused_block_fwd": fb.fused_block_fwd,
+               "fused_block_bwd": fb.fused_block_bwd}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = tail_params(gen, "cuda")
     with phase("3 kernels vs plain"):
@@ -742,6 +963,17 @@ def main() -> int:
                          NARROW_ROWS, dtype, gen)
             check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
                              witness_kink_flips, narrow, NARROW_ROWS, dtype, gen)
+        # K1/K2 at dim 128 with mlp_ratio 4: the weights read through L2
+        wide = tail_params(gen, "cuda", DIM, WIDE_HIDDEN)
+        k1w = check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, wide, ROWS,
+                           torch.bfloat16, gen, rtol=TOL_BF16_WIDE_RTOL)
+        k2w = check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
+                               witness_kink_flips, wide, ROWS, torch.bfloat16, gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, wide, NARROW_ROWS,
+                         dtype, gen, rtol=TOL_BF16_WIDE_RTOL)
+            check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
+                             witness_kink_flips, wide, NARROW_ROWS, dtype, gen)
         torch.cuda.empty_cache()
         attn_checks = {}
         for b, n, d in ATTN_SHAPES:
@@ -751,6 +983,14 @@ def main() -> int:
                     twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
                 torch.cuda.empty_cache()
         k56 = attn_checks[(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)]
+        block_checks = {}
+        for b, n, d, h in BLOCK_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                block_checks[(b, n, d, dtype)] = check_block_kernels(
+                    fb, b, n, d, h, dtype, gen,
+                    twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
+                torch.cuda.empty_cache()
+        k78 = block_checks[(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)]
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     with phase("4 serving"):
@@ -785,7 +1025,8 @@ def main() -> int:
             raise AssertionError("the serving run did not go through the "
                                  "fused kernel once per block per batch")
         if any(launches[k] for k in ("fused_ln_mlp_ln_bwd", "edge_attention_fwd",
-                                     "edge_attention_bwd")):
+                                     "edge_attention_bwd", "fused_block_fwd",
+                                     "fused_block_bwd")):
             raise AssertionError("the serving run launched a kernel off its path")
         with open(os.path.join(cfg.output_dir, cfg.submodel,
                                "inference_drugs.csv")) as f:
@@ -964,6 +1205,95 @@ def main() -> int:
         del acts, aparams, ge, gn, t_res, cleaves, c_out
         torch.cuda.empty_cache()
 
+        # K1 / K2 at dim 128 with mlp_ratio 4 (weights read through L2), bf16
+        s = torch.randn(ROWS, DIM, generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn(ROWS, DIM, generator=gen, device="cuda").to(torch.bfloat16)
+        kw_a = cuda_ms(lambda: fused_ln_mlp_ln(s, *wide), 20)
+        pw_ms = cuda_ms(lambda: fused_ln_mlp_ln_reference(s, *wide), 5)
+        kw_b = cuda_ms(lambda: fused_ln_mlp_ln(s, *wide), 20)
+        kbw_a = cuda_ms(lambda: fused_ln_mlp_ln_bwd(s, *wide, dout), 10)
+        pbw_ms = cuda_ms(lambda: fused_ln_mlp_ln_bwd_reference(s, *wide, dout), 3, warmup=1)
+        kbw_b = cuda_ms(lambda: fused_ln_mlp_ln_bwd(s, *wide, dout), 10)
+        kw_ms, kbw_ms = (kw_a + kw_b) / 2, (kbw_a + kbw_b) / 2
+        boundw, byw = tail_bound(ROWS, torch.bfloat16, DIM, WIDE_HIDDEN)
+        boundbw, bybw = tail_bwd_bound(ROWS, torch.bfloat16, DIM, WIDE_HIDDEN)
+        print(f"   fused_ln_mlp_ln (K1) and its backward (K2) bf16, C {DIM} H {WIDE_HIDDEN} "
+              f"(weights read through L2), rows {ROWS:,} on {name} ({smi_line}):")
+        print(f"   K1 {kw_ms:.4f} ms (runs {kw_a:.4f}, {kw_b:.4f}); plain {pw_ms:.4f} ms; "
+              f"bound {boundw:.4f} ms ({byw}); K2 {kbw_ms:.4f} ms (runs {kbw_a:.4f}, "
+              f"{kbw_b:.4f}); plain {pbw_ms:.4f} ms; bound {boundbw:.4f} ms ({bybw})",
+              flush=True)
+        del s, dout
+        torch.cuda.empty_cache()
+
+        # K7 / K8 at the training shape, bf16
+        bacts, bparams, (gy, gnb) = block_inputs(TRAIN_BATCH, N_ATOMS, DIM, HIDDEN,
+                                                 torch.bfloat16, gen)
+
+        def k7():
+            fb.fused_block_fwd(*bacts, *bparams, HEADS)
+
+        def k7_plain():
+            fb.fused_block_fwd_reference(*bacts, *bparams, HEADS)
+
+        def k8():
+            fb.fused_block_bwd(*bacts, *bparams, gy, gnb, HEADS)
+
+        def k8_plain():
+            fb.fused_block_bwd_reference(*bacts, *bparams, gy, gnb, HEADS)
+
+        # yardstick: the eager bf16 chain that an EncoderBlock runs without
+        # the megablock (GraphMHA's edge chain, then LN4 -> MLP2 -> LN6) and
+        # its autograd backward; no one PyTorch call computes this function
+        lin = (0, 2, 6, 8)   # the weights, [in, out] -> nn.Linear's [out, in]
+        bleaves = [t.detach().requires_grad_() for t in bacts + [
+            (p_.t() if i in lin else p_).bfloat16() for i, p_ in enumerate(bparams)]]
+
+        def block_composite():
+            q_, k_, v_, y_, we_, be_, woe_, boe_, g4_, b4_, w1_, b1_, w2_, b2_, g6_, b6_ = bleaves
+            sh = (TRAIN_BATCH, N_ATOMS, HEADS, hd)
+            e_ = F.linear(y_, we_, be_).reshape(*sh[:2], N_ATOMS, HEADS, hd)
+            at = q_.reshape(sh)[:, :, None] * k_.reshape(sh)[:, None]
+            at = at / math.sqrt(hd) * (e_ + 1.0) * e_
+            y1_ = F.linear(at.reshape(TRAIN_BATCH, N_ATOMS, N_ATOMS, DIM), woe_, boe_)
+            na_ = (torch.softmax(at, dim=2) * v_.reshape(sh)[:, None]).sum(2)
+            u_ = F.layer_norm(y_ + y1_, (DIM,), g4_, b4_, 1e-5)
+            yo_ = F.layer_norm(u_ + F.linear(torch.relu(F.linear(u_, w1_, b1_)), w2_, b2_),
+                               (DIM,), g6_, b6_, 1e-5)
+            return yo_, na_.reshape(TRAIN_BATCH, N_ATOMS, DIM)
+
+        with torch.no_grad():
+            k7_a = cuda_ms(k7, 10)
+            k7_p = cuda_ms(k7_plain, 3, warmup=1)
+            k7_c = cuda_ms(block_composite, 10)
+            k7_b = cuda_ms(k7, 10)
+            k8_a = cuda_ms(k8, 5, warmup=2)
+            k8_p = cuda_ms(k8_plain, 2, warmup=1)
+        b_out = block_composite()
+
+        def block_composite_bwd():
+            torch.autograd.grad(b_out, bleaves, (gy, gnb), retain_graph=True)
+
+        k8_c = cuda_ms(block_composite_bwd, 5, warmup=2)
+        k8_b = cuda_ms(k8, 5, warmup=1)
+        k7_ms, k8_ms = (k7_a + k7_b) / 2, (k8_a + k8_b) / 2
+        (bound7, by7, ffma7), (bound8, by8, ffma8) = block_bounds(
+            TRAIN_BATCH, N_ATOMS, DIM, HIDDEN, torch.bfloat16)
+        print(f"   fused_block_fwd (K7) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} H {HIDDEN} "
+              f"on {name} ({smi_line}):")
+        print(f"   kernel {k7_ms:.4f} ms (runs {k7_a:.4f}, {k7_b:.4f}); plain "
+              f"{k7_p:.4f} ms; eager composite {k7_c:.4f} ms; bound {bound7:.4f} ms "
+              f"({by7}; bf16-exact products at the bf16 rate, t @ Woe at 3xTF32's; "
+              f"its two FFMA products alone {ffma7:.4f} ms on f32 FMA); kernel at "
+              f"{100 * bound7 / k7_ms:.1f}% of the bound")
+        print(f"   fused_block_bwd (K8) bf16, same shape:")
+        print(f"   kernel {k8_ms:.4f} ms (runs {k8_a:.4f}, {k8_b:.4f}); plain "
+              f"{k8_p:.4f} ms; eager autograd backward of the composite {k8_c:.4f} ms; "
+              f"bound {bound8:.4f} ms ({by8}, 3xTF32; on f32 FMA {ffma8:.4f} ms); "
+              f"kernel at {100 * bound8 / k8_ms:.1f}% of the bound", flush=True)
+        del bacts, bparams, gy, gnb, bleaves, b_out
+        torch.cuda.empty_cache()
+
     with phase("7 profile"):
         x, a = next(iter(BatchIterator(engine.data, SERVE_BATCH, seed=cfg.seed)))
         fwd_ms = cuda_ms(lambda: engine.forward(a, x), 5)
@@ -995,13 +1325,17 @@ def main() -> int:
         "replaces": "druggen_tpu/ops/fused_mlp.py:72",
         "launches": launches["fused_ln_mlp_ln_fwd"],
         "launches_by_path": {"serving": launches["fused_ln_mlp_ln_fwd"],
-                             "training": train["launches"]["fused_ln_mlp_ln_fwd"]},
+                             "training": train["launches"]["fused_ln_mlp_ln_fwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["fused_ln_mlp_ln_fwd"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "at_128_512": {"max_abs_err": k1w["max_abs_err"], "ms": kw_ms, "plain_ms": pw_ms,
+                       "bound_ms": boundw, "bound_by": byw},
     }, {
         "name": "fused_ln_mlp_ln_bwd",
         "route": "cuda",
@@ -1009,7 +1343,9 @@ def main() -> int:
         "replaces": "druggen_tpu/ops/fused_mlp.py:91",
         "launches": train["launches"]["fused_ln_mlp_ln_bwd"],
         "launches_by_path": {"serving": launches["fused_ln_mlp_ln_bwd"],
-                             "training": train["launches"]["fused_ln_mlp_ln_bwd"]},
+                             "training": train["launches"]["fused_ln_mlp_ln_bwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["fused_ln_mlp_ln_bwd"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": kb_ms,
         "plain_ms": pb_ms,
@@ -1017,6 +1353,8 @@ def main() -> int:
         "bound_by": bound_b_by,
         "library_ms": None,
         "eager_autograd_ms": cb_ms,
+        "at_128_512": {"max_abs_err": k2w["max_abs_err"], "ms": kbw_ms, "plain_ms": pbw_ms,
+                       "bound_ms": boundbw, "bound_by": bybw},
     }, {
         "name": "edge_attention_fwd",
         "route": "cuda",
@@ -1026,7 +1364,9 @@ def main() -> int:
         "launches_by_path": {"serving": launches["edge_attention_fwd"],
                              "training": train["launches"]["edge_attention_fwd"],
                              "training_use_pallas":
-                                 train["launches_pallas"]["edge_attention_fwd"]},
+                                 train["launches_pallas"]["edge_attention_fwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["edge_attention_fwd"]},
         "max_abs_err": k56["max_abs_err"],
         "ms": k5_ms,
         "plain_ms": k5_p,
@@ -1044,7 +1384,9 @@ def main() -> int:
         "launches_by_path": {"serving": launches["edge_attention_bwd"],
                              "training": train["launches"]["edge_attention_bwd"],
                              "training_use_pallas":
-                                 train["launches_pallas"]["edge_attention_bwd"]},
+                                 train["launches_pallas"]["edge_attention_bwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["edge_attention_bwd"]},
         "max_abs_err": k56["bwd_max_abs_err"],
         "grad_rel_err": k56["grad_rel_err"],
         "ms": k6_ms,
@@ -1054,6 +1396,45 @@ def main() -> int:
         "bound_ffma_ms": ffma6,
         "library_ms": None,
         "eager_autograd_ms": k6_c,
+    }, {
+        "name": "fused_block_fwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_block.cu",
+        "replaces": "druggen_tpu/ops/fused_block.py:82",
+        "launches": train["launches_block"]["fused_block_fwd"],
+        "launches_by_path": {"serving": launches["fused_block_fwd"],
+                             "training": train["launches"]["fused_block_fwd"],
+                             "training_use_pallas": train["launches_pallas"]["fused_block_fwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["fused_block_fwd"]},
+        "max_abs_err": k78["max_abs_err"],
+        "ms": k7_ms,
+        "plain_ms": k7_p,
+        "bound_ms": bound7,
+        "bound_by": by7,
+        "bound_ffma_ms": ffma7,
+        "library_ms": None,
+        "eager_composite_ms": k7_c,
+    }, {
+        "name": "fused_block_bwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_block_bwd.cu",
+        "replaces": "druggen_tpu/ops/fused_block.py:144",
+        "launches": train["launches_block"]["fused_block_bwd"],
+        "launches_by_path": {"serving": launches["fused_block_bwd"],
+                             "training": train["launches"]["fused_block_bwd"],
+                             "training_use_pallas": train["launches_pallas"]["fused_block_bwd"],
+                             "training_fused_block":
+                                 train["launches_block"]["fused_block_bwd"]},
+        "max_abs_err": k78["bwd_max_abs_err"],
+        "grad_rel_err": k78["grad_rel_err"],
+        "ms": k8_ms,
+        "plain_ms": k8_p,
+        "bound_ms": bound8,
+        "bound_by": by8,
+        "bound_ffma_ms": ffma8,
+        "library_ms": None,
+        "eager_autograd_ms": k8_c,
     }]}
     print(json.dumps(record))
     print(nvidia_smi_line())

@@ -6,11 +6,13 @@ flag added to each: ``--device`` (default ``cuda``).  ``platform`` is kept so
 that the JAX CLI's command lines parse unchanged; the port ignores it and
 runs on ``device``.  Knobs of the JAX package that the port does not run
 (the parallel modes, ``split_step``, ``steps_per_dispatch > 1``,
-``fused_block``, ``scan_layers``, ``gp_mode=fwdrev``, ``--features``,
-``--resume``) parse and raise ``NotImplementedError`` in the trainer;
+``scan_layers``, ``gp_mode=fwdrev``, ``--features``, ``--resume``) parse
+and raise ``NotImplementedError`` in the trainer;
 ``InferenceConfig.use_pallas`` (the whole-generator kernel) raises in the
 engine.  ``TrainConfig.use_pallas`` runs the Generator's attention through
-the fused edge-attention kernels.
+the fused edge-attention kernels, ``TrainConfig.fused_block`` every encoder
+block's edge stream through the megablock kernels (the Generator and the
+critic's first-order passes).
 """
 
 from __future__ import annotations

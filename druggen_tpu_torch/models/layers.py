@@ -17,8 +17,8 @@ parameters and returns ``dtype``, and the attention chain runs in the stream
 dtype.  Parameters are stored f32 and named in the reference torch layout
 (``druggen_tpu/interop/torch_ckpt.py``).
 
-The compute dtype, ``fused_mlp``, ``use_pallas`` and ``f32_stats`` are
-plain attributes of the modules, so one set of ``Parameter`` objects runs
+The compute dtype, ``fused_mlp`` (False, True or ``"block"``), ``use_pallas``
+and ``f32_stats`` are plain attributes of the modules, so one set of ``Parameter`` objects runs
 under several numerics (:func:`numerics`), as the JAX step's ``clone(...)``s
 do.
 """
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from druggen_tpu_torch.ops.fused_attention import edge_modulated_attention_proj
+from druggen_tpu_torch.ops.fused_block import fused_block_edge_stream
 from druggen_tpu_torch.ops.fused_mlp import FusedLnMlpLn
 
 
@@ -127,7 +128,16 @@ class GraphMHA(nn.Module):
     raw edge stream and the f32 ``e`` / ``out_e`` parameters go to
     :func:`..ops.fused_attention.edge_modulated_attention_proj` (K5 forward,
     K6 backward where its rule sends the shape; first-order only), then
-    ``out_n``.  Not with ``f32_stats`` (as in JAX)."""
+    ``out_n``.  Not with ``f32_stats`` (as in JAX).
+
+    ``tail``: the megablock (JAX ``layers.py:164-187``), given by a block in
+    ``fused_mlp="block"`` mode: the encoder block's ``ln4``, ``mlp2`` and
+    ``ln6`` parameters (LayerNorm scale and bias, fc1 and fc2 weight
+    [in, out] and bias).  q, k and v on the node stream, the raw edge stream
+    and the f32 ``e`` / ``out_e`` parameters go with them to
+    :func:`..ops.fused_block.fused_block_edge_stream` (K7 forward, K8
+    backward where its rule sends the shape; first-order only), then
+    ``out_n``; the returned edge stream is the block's new one."""
 
     def __init__(self, dim: int, heads: int, dtype=None,
                  f32_stats: bool = False, use_pallas: bool = False):
@@ -141,13 +151,19 @@ class GraphMHA(nn.Module):
         for name in ("q", "k", "v", "e", "out_e", "out_n"):
             setattr(self, name, Dense(dim, dim, dtype))
 
-    def forward(self, node, edge, need_edge: bool = True):
+    def forward(self, node, edge, need_edge: bool = True, tail=None):
         if self.use_pallas and self.f32_stats:
             raise ValueError("f32_stats requires the plain attention path "
                              "(use_pallas off), as in the JAX package")
         b, n, c = node.shape
         h = self.heads
         dk = c // h
+        if tail is not None:
+            y_out, node_agg = fused_block_edge_stream(
+                self.q(node), self.k(node), self.v(node), edge,
+                self.e.weight.t(), self.e.bias, self.out_e.weight.t(),
+                self.out_e.bias, *tail, heads=h)
+            return self.out_n(node_agg), y_out
         q = self.q(node).reshape(b, n, h, dk)
         k = self.k(node).reshape(b, n, h, dk)
         v = self.v(node).reshape(b, n, h, dk)
@@ -181,10 +197,18 @@ class EncoderBlock(nn.Module):
     ``layers.py:321-322``).  ``need_edge=False`` skips the edge stream's
     readout and tail and returns ``(x, None)``: the critic's last block,
     whose edge output nothing reads.  ``use_pallas`` goes to the attention
-    (:class:`GraphMHA`); the fused tail follows it as usual."""
+    (:class:`GraphMHA`); the fused tail follows it as usual.
+
+    ``fused_mlp="block"`` runs the block's whole edge stream (attention and
+    tail) through the megablock (:class:`GraphMHA` with ``tail``; K7/K8)
+    when JAX ``layers.py:274-277`` would: the tail's dropout inactive, no
+    ``use_pallas`` and no ``f32_stats``.  Otherwise ``"block"`` counts as
+    ``True``: the fused tail (K1/K2).  With ``need_edge=False`` the
+    megablock still runs (its node output is needed) and its edge output is
+    dropped.  The parameters are the same in every mode."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
-                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False,
+                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool | str = False,
                  f32_stats: bool = False, use_pallas: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
@@ -201,6 +225,17 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x, y, need_edge: bool = True):
         x1 = self.ln1(x)
+        dropout_off = self.drop_rate == 0.0 or not self.training
+        if (self.fused_mlp == "block" and dropout_off and not self.attn.use_pallas
+                and not self.f32_stats):
+            tail = (self.ln4.weight, self.ln4.bias,
+                    self.mlp2.fc1.weight.t(), self.mlp2.fc1.bias,
+                    self.mlp2.fc2.weight.t(), self.mlp2.fc2.bias,
+                    self.ln6.weight, self.ln6.bias)
+            x2, y = self.attn(x1, y, tail=tail)
+            x2 = self.ln3(x1 + x2)
+            x = self.ln5(x2 + self.mlp(x2))
+            return x, (y if need_edge else None)
         x2, y1 = self.attn(x1, y, need_edge)
         x2 = x1 + x2            # residual vs the *normed* input (sic,
         # reference layers.py:187: x2 = x1 + x2)
@@ -208,8 +243,7 @@ class EncoderBlock(nn.Module):
         x = self.ln5(x2 + self.mlp(x2))
         if not need_edge:
             return x, None
-        if not (self.fused_mlp and (self.drop_rate == 0.0 or not self.training)
-                and not self.f32_stats):
+        if not (self.fused_mlp and dropout_off and not self.f32_stats):
             y2 = self.ln4(y + y1)
             return x, self.ln6(y2 + self.mlp2(y2))
         y = FusedLnMlpLn.apply(
@@ -225,7 +259,7 @@ class TransformerEncoder(nn.Module):
     """Stack of encoder blocks, unrolled (reference layers.py:195-234)."""
 
     def __init__(self, dim: int, depth: int, heads: int, mlp_ratio: int = 4,
-                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool = False,
+                 drop_rate: float = 0.0, dtype=None, fused_mlp: bool | str = False,
                  use_pallas: bool = False):
         super().__init__()
         self.Encoder_Blocks = nn.ModuleList(
@@ -245,8 +279,8 @@ def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
              use_pallas=...):
     """Run ``model`` under other numerics, on the same ``Parameter``
     objects: ``dtype`` (None = the promoted input dtype, i.e. f32) for every
-    :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` for every
-    :class:`EncoderBlock`, ``f32_stats`` and ``use_pallas`` for every
+    :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` (False, True or
+    ``"block"``) for every :class:`EncoderBlock`, ``f32_stats`` and ``use_pallas`` for every
     :class:`GraphMHA`.
     An argument left out keeps the module's own value; all are restored on
     exit.  The counterpart of the JAX step's ``model.clone(...)``."""

@@ -29,7 +29,7 @@ class _Trunk(nn.Module):
 
     def __init__(self, act: str, edges: int, nodes: int, dropout: float,
                  dim: int, depth: int, heads: int, mlp_ratio: int,
-                 dtype=None, fused_mlp: bool = False, use_pallas: bool = False):
+                 dtype=None, fused_mlp: bool | str = False, use_pallas: bool = False):
         super().__init__()
         # node_layers: Linear(nodes,64) act Linear(64,dim) act Dropout
         self.node_layers = nn.Sequential(
@@ -61,11 +61,13 @@ class Generator(_Trunk):
     when none is given); load trained weights with ``load_state_dict``.
     ``use_pallas`` runs every block's attention through the fused edge
     attention (K5/K6, first-order only); the critic never does (JAX
-    ``trainer.py:139-143``)."""
+    ``trainer.py:139-143``).  ``fused_mlp`` is False, True (the fused edge
+    tail, K1/K2) or ``"block"`` (the megablock, K7/K8, where the block's
+    rule allows it; JAX ``trainer.py:136-137``)."""
 
     def __init__(self, act: str, vertexes: int, edges: int, nodes: int,
                  dropout: float, dim: int, depth: int, heads: int,
-                 mlp_ratio: int, dtype=None, fused_mlp: bool = False,
+                 mlp_ratio: int, dtype=None, fused_mlp: bool | str = False,
                  generator: torch.Generator | None = None,
                  use_pallas: bool = False):
         super().__init__(act, edges, nodes, dropout, dim, depth, heads,
@@ -90,11 +92,13 @@ class Discriminator(_Trunk):
     the trunk's node stream flattened to ``[B, N*dim]`` through the head
     ``node_mlp`` (N*dim -> 64 -> 32 -> 16 -> 1, widths times ``head_mult``).
     The head reads only the node stream, so the last block's edge readout
-    and tail are skipped (XLA drops them as dead code on the JAX side)."""
+    and tail are skipped (XLA drops them as dead code on the JAX side); in
+    ``fused_mlp="block"`` mode the last block's megablock still runs and its
+    edge output is dropped (the Pallas call is not dead code either)."""
 
     def __init__(self, act: str, vertexes: int, edges: int, nodes: int,
                  dropout: float, dim: int, depth: int, heads: int,
-                 mlp_ratio: int, dtype=None, fused_mlp: bool = False,
+                 mlp_ratio: int, dtype=None, fused_mlp: bool | str = False,
                  head_mult: int = 1, generator: torch.Generator | None = None):
         super().__init__(act, edges, nodes, dropout, dim, depth, heads,
                          mlp_ratio, dtype, fused_mlp)

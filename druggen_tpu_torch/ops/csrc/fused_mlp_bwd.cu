@@ -58,9 +58,12 @@
 // Widths: C and H are compile-time constants set by the build
 // (-DKERNEL_C=... -DKERNEL_H=..., default 128 and 384), as in fused_mlp.cu:
 // the rows pass holds C-wide rows VEC columns a lane at a time and runs its
-// products on WMMA tiles over C and H padded to multiples of 16 (zeros in
-// shared memory); its block stages both bf16 weights, so it runs only while
-// RowSmem<bf16>::total (the same formula as K1's) fits 227 KB.  wgrad covers
+// products on WMMA tiles over C and H padded to multiples of 16 (the weights
+// come zero-padded; the row helpers are tail_common.cuh's, shared with K1
+// and K8); its block stages both bf16 weights where they fit 227 KB
+// beside its buffers (RowSmem<bf16>::kStage, the same rule as K1's) and
+// otherwise reads their fragments from device memory, where they stay
+// resident in L2, so every width runs.  wgrad covers
 // dW1 [C, H] and dW2 [H, C] with 128 x 128 tiles masked at the edges.
 //
 // The f32 twin (off the training path) multiplies on the CUDA cores with the
@@ -78,48 +81,15 @@
 #include <cstdint>
 #include <type_traits>
 
-#ifndef KERNEL_C
-#define KERNEL_C 128
-#endif
-#ifndef KERNEL_H
-#define KERNEL_H 384
-#endif
+#include "tail_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace tailk;
 
-constexpr int C = KERNEL_C;               // stream width (dim)
-constexpr int H = KERNEL_H;               // MLP hidden (mlp_ratio * dim)
-constexpr int CP = (C + 15) / 16 * 16;    // widths padded to WMMA tiles
-constexpr int HP = (H + 15) / 16 * 16;
-constexpr int BM = 16;                    // rows per tile of the rows pass
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BM / WARPS; // LayerNorm rows owned by a warp
-constexpr float EPS = 1e-5f;
-// A lane holds columns (ch * 32 + lane) * VEC + v of its rows, ch < NCH.
-constexpr int VEC = C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
-constexpr int NCH = (C + 32 * VEC - 1) / (32 * VEC);
-constexpr int HT = HP / 16;               // hidden column tiles
-constexpr int CT = CP / 16;               // stream column tiles
-constexpr int NT1 = (HT + WARPS - 1) / WARPS;  // hidden tiles a warp owns
-constexpr int NT2 = (CT + WARPS - 1) / WARPS;  // stream tiles a warp owns
-// Whether every lane's columns and every warp's tiles exist: then the
-// guards below are compile-time constants (true at the published widths).
-constexpr bool kFullRow = C == NCH * 32 * VEC;
-constexpr bool kFullHT = HT % WARPS == 0;
-constexpr bool kFullCT = CT % WARPS == 0;
 constexpr int NQ = (H + THREADS - 1) / THREADS;  // hidden units a thread owns (f32)
 constexpr int NDB1 = NT1 > NQ ? NT1 : NQ;
-
-// Padded leading dimensions (elements), as in fused_mlp.cu.
-constexpr int LDW1 = CP + 8;  // W1^T in shared memory: [HP][LDW1]
-constexpr int LDW2 = HP + 8;  // W2^T in shared memory: [CP][LDW2]
-constexpr int LDX = CP + 8;   // rounded x, then rounded dm:  [BM][LDX]
-constexpr int LDH = HP + 8;   // rounded h, then rounded dh:  [BM][LDH]
-constexpr int LDS = CP + 4;   // f32 product stage:           [BM][LDS]
-constexpr int STAGE = BM * LDS > WARPS * 256 ? BM * LDS : WARPS * 256;  // floats
 
 // One vector partial: dg1, dbl1, db1, db2, dg2, dbl2.
 constexpr int OFF_DG1 = 0, OFF_DBL1 = C, OFF_DB1 = 2 * C, OFF_DB2 = 2 * C + H,
@@ -138,17 +108,24 @@ constexpr int TC = (C + TILE - 1) / TILE;  // tiles along C
 constexpr int TH = (H + TILE - 1) / TILE;  // tiles along H
 constexpr int TILES = TC * TH;             // output tiles of each weight gradient
 
-static_assert(C > 0 && H > 0 && BM % WARPS == 0, "tile shapes must divide among the warps");
-
 template <typename T>
 struct RowSmem {
   static constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr size_t w1 = kTensorCores ? size_t(HP) * LDW1 * sizeof(T) : 0;
-  static constexpr size_t w2 = kTensorCores ? size_t(CP) * LDW2 * sizeof(T) : 0;
   static constexpr size_t x = size_t(BM) * LDX * sizeof(T);
   static constexpr size_t h = size_t(BM) * LDH * sizeof(T);
   static constexpr size_t stage = size_t(STAGE) * sizeof(float);
+  static constexpr size_t w1_staged = size_t(HP) * LDW1 * sizeof(T);
+  static constexpr size_t w2_staged = size_t(CP) * LDW2 * sizeof(T);
+  // stage both bf16 weights when they fit beside the tile's buffers; else
+  // the fragments are read from device memory (the weights stay in L2)
+  static constexpr bool kStage =
+      kTensorCores && w1_staged + w2_staged + x + h + stage <= SMEM_MAX;
+  static constexpr size_t w1 = kStage ? w1_staged : 0;
+  static constexpr size_t w2 = kStage ? w2_staged : 0;
   static constexpr size_t total = w1 + w2 + x + h + stage;
+  // leading dimensions of the weights where the products read them
+  static constexpr int ld1 = kStage ? LDW1 : CP;
+  static constexpr int ld2 = kStage ? LDW2 : HP;
 };
 
 static_assert(RowSmem<__nv_bfloat16>::w1 % 128 == 0 && RowSmem<__nv_bfloat16>::w2 % 128 == 0 &&
@@ -156,156 +133,6 @@ static_assert(RowSmem<__nv_bfloat16>::w1 % 128 == 0 && RowSmem<__nv_bfloat16>::w
               "shared buffers must stay 128-byte aligned");
 static_assert(RowSmem<float>::x % 128 == 0 && RowSmem<float>::h % 128 == 0,
               "shared buffers must stay 128-byte aligned");
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// VEC consecutive elements <-> VEC floats.
-__device__ __forceinline__ void loadv(const float* p, float* v) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float* v) {
-  if constexpr (VEC == 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  } else if constexpr (VEC == 2) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = a.x; v[1] = a.y;
-  } else {
-    v[0] = __bfloat162float(p[0]);
-  }
-}
-__device__ __forceinline__ void storev(float* p, const float* v) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-__device__ __forceinline__ void storev(__nv_bfloat16* p, const float* v) {
-  if constexpr (VEC == 4) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const uint32_t*>(&a);
-    t.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = t;
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  } else {
-    p[0] = __float2bfloat16_rn(v[0]);
-  }
-}
-
-// First column of chunk `ch` of this lane, and whether the chunk is in the row.
-__device__ __forceinline__ int col_of(int ch, int lane) { return (ch * 32 + lane) * VEC; }
-__device__ __forceinline__ bool col_ok(int ch, int lane) {
-  return kFullRow || col_of(ch, lane) < C;
-}
-__device__ __forceinline__ bool ht_ok(int tile) { return kFullHT || tile < HT; }
-__device__ __forceinline__ bool ct_ok(int tile) { return kFullCT || tile < CT; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// LayerNorm statistics of one C-wide row held by a warp (zero past the row),
-// in f32 (two-pass variance, as the Pallas kernel's _ln_fwd): xhat (zero past
-// the row) and rstd.
-__device__ __forceinline__ float ln_stats(const float v[NCH][VEC], float xhat[NCH][VEC], int lane) {
-  float s = 0.0f;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) s += v[ch][i];
-  const float mu = warp_sum(s) * (1.0f / C);
-  float q = 0.0f;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      xhat[ch][i] = col_ok(ch, lane) ? v[ch][i] - mu : 0.0f;
-      q += xhat[ch][i] * xhat[ch][i];
-    }
-  const float rstd = rsqrtf(warp_sum(q) * (1.0f / C) + EPS);
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) xhat[ch][i] *= rstd;
-  return rstd;
-}
-
-// d(input) of y = gamma * xhat + beta given the upstream dy (the Pallas
-// kernel's _ln_bwd_input); zero past the row.
-__device__ __forceinline__ void ln_bwd(const float dy[NCH][VEC], const float xhat[NCH][VEC],
-                                       float rstd, const float g[NCH][VEC], float dx[NCH][VEC],
-                                       int lane) {
-  float dxh[NCH][VEC];
-  float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      dxh[ch][i] = dy[ch][i] * g[ch][i];
-      s1 += dxh[ch][i];
-      s2 += dxh[ch][i] * xhat[ch][i];
-    }
-  const float m1 = warp_sum(s1) * (1.0f / C);
-  const float m2 = warp_sum(s2) * (1.0f / C);
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      dx[ch][i] = col_ok(ch, lane) ? (dxh[ch][i] - m1 - xhat[ch][i] * m2) * rstd : 0.0f;
-}
-
-// dst[r * ld + c] = src[r * C_SRC + c] for r < R_SRC, c < C_SRC; zeros for
-// the padded rows r < R_DST and columns c < C_DST (as in fused_mlp.cu).
-template <int R_SRC, int C_SRC, int R_DST, int C_DST, int LD>
-__device__ __forceinline__ void stage_padded(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                             int tid) {
-  if constexpr (C_SRC % 8 == 0) {
-    for (int i = tid; i < R_SRC * (C_SRC / 8); i += THREADS) {
-      const int r = i / (C_SRC / 8), c = (i % (C_SRC / 8)) * 8;
-      *reinterpret_cast<uint4*>(dst + r * LD + c) =
-          *reinterpret_cast<const uint4*>(src + size_t(r) * C_SRC + c);
-    }
-  } else {
-    for (int i = tid; i < R_SRC * C_SRC; i += THREADS)
-      dst[(i / C_SRC) * LD + i % C_SRC] = src[i];
-  }
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  if constexpr (C_DST > C_SRC) {
-    for (int r = 0; r < R_DST; ++r)
-      for (int c = C_SRC + tid; c < C_DST; c += THREADS) dst[r * LD + c] = zero;
-  }
-  if constexpr (R_DST > R_SRC) {
-    for (int r = R_SRC; r < R_DST; ++r)
-      for (int c = tid; c < C_SRC; c += THREADS) dst[r * LD + c] = zero;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // 1. rows: recompute forward, backward per row, ds, the product operands and
@@ -322,8 +149,8 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
             float* __restrict__ vec_partial, long long rows) {
   using S = RowSmem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* w1s = reinterpret_cast<T*>(smem);
-  T* w2s = reinterpret_cast<T*>(smem + S::w1);
+  T* w1st = reinterpret_cast<T*>(smem);
+  T* w2st = reinterpret_cast<T*>(smem + S::w1);
   T* xs = reinterpret_cast<T*>(smem + S::w1 + S::w2);          // x, then dm
   T* hs = reinterpret_cast<T*>(smem + S::w1 + S::w2 + S::x);   // h, then dh
   float* stage = reinterpret_cast<float*>(smem + S::w1 + S::w2 + S::x + S::h);
@@ -332,10 +159,14 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  if constexpr (S::kTensorCores) {
-    stage_padded<H, C, HP, CP, LDW1>(w1s, w1t, tid);
-    stage_padded<C, H, CP, HP, LDW2>(w2s, w2t, tid);
+  if constexpr (S::kStage) {
+    stage_rows<HP, CP, LDW1>(w1st, w1t, tid);
+    stage_rows<CP, HP, LDW2>(w2st, w2t, tid);
   }
+  // where the products read the weights: staged, or in device memory
+  const T* w1s = S::kStage ? w1st : w1t;
+  const T* w2s = S::kStage ? w2st : w2t;
+  constexpr int LDA1 = S::ld1, LDA2 = S::ld2;
   // The padded columns of x / dm stay zero (see fused_mlp.cu).
   if constexpr (CP > C) {  // keep the guard: unguarded, this dead loop slowed this kernel
     for (int r = 0; r < BM; ++r)
@@ -413,7 +244,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           if (ht_ok(warp + t * WARPS)) {  // uniform across the warp
             const int n0 = (warp + t * WARPS) * 16;
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-            wmma::load_matrix_sync(b, w1s + n0 * LDW1 + k, LDW1);
+            wmma::load_matrix_sync(b, w1s + n0 * LDA1 + k, LDA1);
             wmma::mma_sync(acc[t], a, b, acc[t]);
           }
         }
@@ -437,7 +268,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
       for (int e = tid; e < BM * H; e += THREADS) {
         const int r = e / H, n = e % H;
         const T* xrow = xs + r * LDX;
-        const T* wrow = w1t + size_t(n) * C;
+        const T* wrow = w1t + size_t(n) * CP;
         float acc = 0.0f;
 #pragma unroll 8
         for (int k = 0; k < C; ++k) acc = fmaf(to_float(xrow[k]), to_float(__ldg(wrow + k)), acc);
@@ -462,9 +293,9 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1f;
           wmma::load_matrix_sync(a0, hs + k, LDH);
-          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + k, LDW2);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDA2 + k, LDA2);
           wmma::load_matrix_sync(a1, hs + k + 16, LDH);
-          wmma::load_matrix_sync(b1f, w2s + n0 * LDW2 + k + 16, LDW2);
+          wmma::load_matrix_sync(b1f, w2s + n0 * LDA2 + k + 16, LDA2);
           wmma::mma_sync(acc0, a0, b0, acc0);
           wmma::mma_sync(acc1, a1, b1f, acc1);
         }
@@ -472,7 +303,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0;
           wmma::load_matrix_sync(a0, hs + HP - 16, LDH);
-          wmma::load_matrix_sync(b0, w2s + n0 * LDW2 + HP - 16, LDW2);
+          wmma::load_matrix_sync(b0, w2s + n0 * LDA2 + HP - 16, LDA2);
           wmma::mma_sync(acc0, a0, b0, acc0);
         }
 #pragma unroll
@@ -483,7 +314,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
       for (int e = tid; e < BM * C; e += THREADS) {
         const int r = e / C, n = e % C;
         const T* hrow = hs + r * LDH;
-        const T* wrow = w2t + size_t(n) * H;
+        const T* wrow = w2t + size_t(n) * HP;
         float acc = 0.0f;
 #pragma unroll 8
         for (int k = 0; k < H; ++k) acc = fmaf(to_float(hrow[k]), to_float(__ldg(wrow + k)), acc);
@@ -555,7 +386,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           if (ht_ok(warp + t * WARPS)) {
             const int n0 = (warp + t * WARPS) * 16;
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, w2s + k * LDW2 + n0, LDW2);
+            wmma::load_matrix_sync(b, w2s + k * LDA2 + n0, LDA2);
             wmma::mma_sync(acc[t], a, b, acc[t]);
           }
         }
@@ -591,7 +422,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
             float acc = 0.0f;
 #pragma unroll 8
             for (int k = 0; k < C; ++k)
-              acc = fmaf(to_float(mrow[k]), to_float(__ldg(wcol + size_t(k) * H)), acc);
+              acc = fmaf(to_float(mrow[k]), to_float(__ldg(wcol + size_t(k) * HP)), acc);
             const float dh = to_float(hs[r * LDH + n]) > 0.0f ? acc : 0.0f;
             hs[r * LDH + n] = from_float<T>(dh);
             if (row0 + r < rows) {
@@ -618,9 +449,9 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1f;
           wmma::load_matrix_sync(a0, hs + k, LDH);
-          wmma::load_matrix_sync(b0, w1s + k * LDW1 + n0, LDW1);
+          wmma::load_matrix_sync(b0, w1s + k * LDA1 + n0, LDA1);
           wmma::load_matrix_sync(a1, hs + k + 16, LDH);
-          wmma::load_matrix_sync(b1f, w1s + (k + 16) * LDW1 + n0, LDW1);
+          wmma::load_matrix_sync(b1f, w1s + (k + 16) * LDA1 + n0, LDA1);
           wmma::mma_sync(acc0, a0, b0, acc0);
           wmma::mma_sync(acc1, a1, b1f, acc1);
         }
@@ -628,7 +459,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0;
           wmma::load_matrix_sync(a0, hs + HP - 16, LDH);
-          wmma::load_matrix_sync(b0, w1s + (HP - 16) * LDW1 + n0, LDW1);
+          wmma::load_matrix_sync(b0, w1s + (HP - 16) * LDA1 + n0, LDA1);
           wmma::mma_sync(acc0, a0, b0, acc0);
         }
 #pragma unroll
@@ -643,7 +474,7 @@ rows_kernel(const T* __restrict__ s, const T* __restrict__ dout, const float* __
         float acc = 0.0f;
 #pragma unroll 8
         for (int k = 0; k < H; ++k)
-          acc = fmaf(to_float(hrow[k]), to_float(__ldg(wcol + size_t(k) * C)), acc);
+          acc = fmaf(to_float(hrow[k]), to_float(__ldg(wcol + size_t(k) * CP)), acc);
         stage[r * LDS + n] = acc;
       }
     }
@@ -941,8 +772,9 @@ int launch(const void* s, const void* dout, const void* g1, const void* bl1, con
 }  // namespace
 
 // s, dout, ds and the four row buffers x, dm [rows, C] and h, dh [rows, H] in
-// the stream type; w1t = W1^T [H, C] and w2t = W2^T [C, H] in the stream
-// type; LayerNorm parameters and biases f32.  c and h must be the compiled
+// the stream type; w1t = W1^T [HP, CP] and w2t = W2^T [CP, HP] in the stream
+// type, zero-padded to multiples of 16 (as fused_mlp.cu's); LayerNorm
+// parameters and biases f32.  c and h must be the compiled
 // KERNEL_C and KERNEL_H.
 // vec_partial: f32 [row_blocks * 8, fused_ln_mlp_ln_bwd_sizes()[0]], zeroed;
 // w_partial: f32 [2, chunks, C * H]; grads: f32 [fused_ln_mlp_ln_bwd_sizes()[1]]
@@ -983,4 +815,8 @@ extern "C" void fused_ln_mlp_ln_bwd_sizes(long long out[4]) {
 
 extern "C" long long fused_ln_mlp_ln_bwd_smem_bytes(int bf16) {
   return bf16 ? (long long)RowSmem<__nv_bfloat16>::total : (long long)RowSmem<float>::total;
+}
+
+extern "C" int fused_ln_mlp_ln_bwd_stages_weights(int bf16) {
+  return bf16 ? int(RowSmem<__nv_bfloat16>::kStage) : int(RowSmem<float>::kStage);
 }

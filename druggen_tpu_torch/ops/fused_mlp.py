@@ -24,15 +24,14 @@ only (its backward is ``once_differentiable``).  A CPU tensor takes the
 plain versions in both directions; a CUDA tensor launches or raises.
 
 Widths.  The kernels take C and H as compile-time constants: each (C, H) a
-run meets is built into its own library at first use.  Their bf16 blocks
-stage both weights in one SM's shared memory, so on the card a width runs
-only while the library's own ``*_smem_bytes`` export fits the 227 KB a block
-may take (``SMEM_LIMIT``): dim 128 with mlp_ratio 3 takes 230,144 B, dim 64
-with mlp_ratio 3 70,144 B; a bf16 tail at dim 128 with mlp_ratio 4 or at dim
-256 does not fit, and its wrapper raises, naming the limit.  The f32 twins
-stage no weights and run any width.  On the CPU the plain versions run at
-every width.  A weight-streaming K1/K2 for the wider bf16 widths is queued
-(``ROADMAP.md`` queue B).
+run meets is built into its own library at first use, and every width runs.
+The weights go to the kernels as W1^T and W2^T in the stream dtype,
+zero-padded to multiples of 16 (the library's ``*_padded_widths``).  A bf16
+block stages both weights in shared memory where they fit one SM's 227 KB
+beside its buffers (dim 128 with mlp_ratio 3: 230,144 B) and otherwise reads
+them through L2 (dim 128 with mlp_ratio 4, dim 256); the f32 twins always
+read them through L2.  The tile routine is shared with K7
+(``csrc/tail_common.cuh``).
 """
 
 from __future__ import annotations
@@ -205,6 +204,8 @@ def _kernel_lib(c: int, h: int) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fused_ln_mlp_ln_fwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_ln_mlp_ln_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_ln_mlp_ln_fwd_stages_weights.argtypes = [ctypes.c_int]
+    lib.fused_ln_mlp_ln_fwd_stages_weights.restype = ctypes.c_int
     return lib
 
 
@@ -221,6 +222,8 @@ def _bwd_lib(c: int, h: int) -> ctypes.CDLL:
     lib.fused_ln_mlp_ln_bwd_sizes.restype = None
     lib.fused_ln_mlp_ln_bwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_ln_mlp_ln_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_ln_mlp_ln_bwd_stages_weights.argtypes = [ctypes.c_int]
+    lib.fused_ln_mlp_ln_bwd_stages_weights.restype = ctypes.c_int
     return lib
 
 
@@ -249,11 +252,19 @@ def _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2) -> None:
         raise ValueError("s must be 16-byte aligned")
 
 
-def _check_smem(need: int, s, w1) -> None:
-    if need > SMEM_LIMIT:
-        raise ValueError(f"fused_ln_mlp_ln kernels at C={s.shape[-1]}, H={w1.shape[-1]}, "
-                         f"{s.dtype} need {need:,} B of shared memory a block, over "
-                         f"the {SMEM_LIMIT:,} B an SM gives one")
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def padded_weights(w1, w2, dtype):
+    """W1^T [HP, CP] and W2^T [CP, HP] in ``dtype``, zero-padded to
+    multiples of 16 (the layout the tail kernels read; a no-op pad at the
+    published widths)."""
+    c, hid = w1.shape
+    cp, hp = _pad16(c), _pad16(hid)
+    w1t = F.pad(w1.t().to(dtype), (0, cp - c, 0, hp - hid)).contiguous()
+    w2t = F.pad(w2.t().to(dtype), (0, hp - hid, 0, cp - c)).contiguous()
+    return w1t, w2t
 
 
 def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
@@ -272,13 +283,11 @@ def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
     c = s.shape[-1]
     dt = s.dtype
     lib = _kernel_lib(c, w1.shape[-1])
-    _check_smem(lib.fused_ln_mlp_ln_fwd_smem_bytes(int(dt == torch.bfloat16)), s, w1)
     rows = s.numel() // c
     out = torch.empty_like(s)
     if rows == 0:
         return out
-    w1t = w1.t().to(dt).contiguous()     # W1^T [H, C], nn.Linear layout
-    w2t = w2.t().to(dt).contiguous()     # W2^T [C, H]
+    w1t, w2t = padded_weights(w1, w2, dt)   # nn.Linear layout, padded
     g1, bl1, b1, b2, g2, bl2 = (p.to(torch.float32).contiguous()
                                 for p in (g1, bl1, b1, b2, g2, bl2))
     fn = (lib.fused_ln_mlp_ln_fwd_bf16 if dt == torch.bfloat16
@@ -322,20 +331,21 @@ def fused_ln_mlp_ln_bwd(s, g1, bl1, w1, b1, w2, b2, g2, bl2, dout):
     dev = s.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _bwd_lib(c, hid)
-    _check_smem(lib.fused_ln_mlp_ln_bwd_smem_bytes(int(dt == torch.bfloat16)), s, w1)
     sizes = (ctypes.c_longlong * 4)()
     lib.fused_ln_mlp_ln_bwd_sizes(sizes)
     n_vec, n_grads, slab, w_tiles = sizes
     sms = num_sms(index)
     tiles = -(-rows // 16)
-    row_blocks = max(1, min(tiles, sms * (1 if dt == torch.bfloat16 else 4)))
+    bf16 = int(dt == torch.bfloat16)
+    # a block that stages the weights fills an SM; otherwise a few a SM
+    per_sm = 1 if lib.fused_ln_mlp_ln_bwd_stages_weights(bf16) else (2 if bf16 else 4)
+    row_blocks = max(1, min(tiles, sms * per_sm))
     # split-K over rows for the weight gradients: 2 x w_tiles output tiles x
     # chunks blocks, about two a streaming multiprocessor
     chunks = max(1, min(-(-rows // slab), (2 * sms) // (2 * w_tiles)))
     chunk_rows = -(-max(rows, 1) // chunks)
     chunk_rows = -(-chunk_rows // slab) * slab
-    w1t = w1.t().to(dt).contiguous()     # W1^T [H, C]
-    w2t = w2.t().to(dt).contiguous()     # W2^T [C, H]
+    w1t, w2t = padded_weights(w1, w2, dt)
     g1f, bl1f, b1f, b2f, g2f, bl2f = (p.to(torch.float32).contiguous()
                                       for p in (g1, bl1, b1, b2, g2, bl2))
     ds = torch.empty_like(s)

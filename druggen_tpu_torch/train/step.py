@@ -16,14 +16,18 @@ Numerics, per pass, on the same ``Parameter`` objects
 - the Generator in the compute dtype, with its fused edge tail (K1 forward,
   K2 backward) when ``g_fused`` and its fused edge attention (K5 forward, K6
   backward) when ``g_pallas`` (JAX: only G is built with ``use_pallas``; the
-  critic never, its penalty pass is differentiated twice);
+  critic never, its penalty pass is differentiated twice); ``g_fused="block"``
+  runs each block's whole edge stream through the megablock (K7 forward, K8
+  backward) where the block's rule allows it (not with ``g_pallas``: then
+  K5/K6 and the fused tail, as in JAX ``layers.py:274-277``);
 - the critic's first-order passes (D-step real and fake, G-step fake) with
-  the fused tail when ``fused_critic``;
+  the fused tail when ``fused_critic``, the megablock when
+  ``fused_critic="block"`` (JAX ``step.py:207-214``);
 - the gradient-penalty pass on the plain critic (it is differentiated
   twice), in f32 with the interpolants cast before differentiation when
   ``gp_f32`` (JAX :185-186, :236-260);
-- ``f32_stats``: softmax in f32, the fused tails and the fused attention off
-  (JAX :170-181).
+- ``f32_stats``: softmax in f32, the fused tails, the megablock and the fused
+  attention off (JAX :170-181).
 """
 
 from __future__ import annotations
@@ -37,6 +41,15 @@ from druggen_tpu_torch.train.losses import (
     draw_gp_noise,
     generator_loss,
 )
+
+
+def _fused_mode(value):
+    """``fused_mlp`` of a pass: ``"block"`` or a bool."""
+    if value == "block":
+        return "block"
+    if value not in (True, False, None):
+        raise ValueError(f"fused mode must be True, False or 'block', got {value!r}")
+    return bool(value)
 
 
 def _grads(loss, params):
@@ -59,9 +72,9 @@ class TrainStep:
 
     def __init__(self, G, D, g_opt, d_opt, *, lambda_gp: float, m_dim: int,
                  b_dim: int, submodel: str = "DrugGEN",
-                 compute_dtype=torch.float32, g_fused: bool = False,
+                 compute_dtype=torch.float32, g_fused: bool | str = False,
                  node_mode: str = "labels", gp_mode: str = "revrev",
-                 share_fake="auto", fused_critic: bool = False,
+                 share_fake="auto", fused_critic: bool | str = False,
                  gp_f32: bool = False, f32_stats: bool = False,
                  g_pallas: bool = False,
                  generator: torch.Generator | None = None):
@@ -71,9 +84,6 @@ class TrainStep:
         if gp_mode != "revrev":
             raise NotImplementedError(f"gp_mode={gp_mode!r} is not ported yet "
                                       "(ROADMAP queue A)")
-        if fused_critic not in (True, False):
-            raise NotImplementedError(f"fused_critic={fused_critic!r} (the "
-                                      "megablock kernel) is not ported yet")
         self.G, self.D, self.g_opt, self.d_opt = G, D, g_opt, d_opt
         self.lambda_gp, self.m_dim, self.b_dim = lambda_gp, m_dim, b_dim
         self.submodel = submodel
@@ -81,10 +91,11 @@ class TrainStep:
         dt = None if compute_dtype == torch.float32 else compute_dtype
         lowp = compute_dtype != torch.float32
         f32_stats = bool(f32_stats and lowp)
-        self.g_numerics = dict(dtype=dt, fused_mlp=bool(g_fused) and not f32_stats,
+        self.g_numerics = dict(dtype=dt, fused_mlp=False if f32_stats else _fused_mode(g_fused),
                                f32_stats=f32_stats,
                                use_pallas=bool(g_pallas) and not f32_stats)
-        self.d_first = dict(dtype=dt, fused_mlp=bool(fused_critic) and not f32_stats,
+        self.d_first = dict(dtype=dt,
+                            fused_mlp=False if f32_stats else _fused_mode(fused_critic),
                             f32_stats=f32_stats, use_pallas=False)
         gp32 = bool(gp_f32 and lowp)
         self.d_gp = dict(dtype=None if gp32 else dt, fused_mlp=False,

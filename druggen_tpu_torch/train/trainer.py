@@ -16,13 +16,17 @@ and optimizer state.
 
 ``use_pallas`` puts the fused edge attention (K5/K6) on the Generator only;
 the critic is built without it (JAX ``trainer.py:129-143``), and the ladder's
-tiers 2 and 3 switch it off.
+tiers 2 and 3 switch it off.  ``fused_block`` routes each encoder block's
+whole edge stream through the megablock (K7/K8): the Generator and the
+critic's first-order passes run in ``fused_mlp="block"`` mode, the
+gradient-penalty pass stays plain (JAX ``trainer.py:136-137, 229-234``); a
+Generator with ``use_pallas`` keeps K5/K6 and the fused tail instead, and
+the ladder's tiers 2 and 3 switch the megablock off.
 
 Not ported (each raises ``NotImplementedError``): the parallel modes
 (``mesh_*``, ``distributed``), ``split_step``, ``steps_per_dispatch > 1``,
-``fused_block``, ``scan_layers``, ``gp_mode="fwdrev"``, ``--features`` and
-``--resume``; the full-state checkpoints (``state_*.msgpack``) are not
-written.
+``scan_layers``, ``gp_mode="fwdrev"``, ``--features`` and ``--resume``; the
+full-state checkpoints (``state_*.msgpack``) are not written.
 """
 
 from __future__ import annotations
@@ -57,7 +61,6 @@ def _reject_unported(cfg: TrainConfig) -> None:
         "mesh_data": cfg.mesh_data > 1, "distributed": cfg.distributed,
         "split_step": cfg.split_step,
         "steps_per_dispatch": cfg.steps_per_dispatch > 1,
-        "fused_block": cfg.fused_block,
         "scan_layers": cfg.scan_layers, "gp_mode": cfg.gp_mode != "revrev",
         "features": cfg.features, "resume": cfg.resume,
     }
@@ -104,9 +107,13 @@ class Trainer:
                       dtype=None if self.compute_dtype == torch.float32
                       else self.compute_dtype)
         # the fused attention goes to G only: the gradient penalty
-        # differentiates D twice (JAX trainer.py:129-131)
+        # differentiates D twice (JAX trainer.py:129-131); --fused_block
+        # routes each block's edge stream through the megablock (JAX
+        # trainer.py:136-137)
+        self.fused_g = "block" if cfg.fused_block else cfg.fused_mlp
+        self.fused_d = "block" if cfg.fused_block else cfg.fused_critic
         self.G = Generator(dropout=cfg.dropout, depth=cfg.depth,
-                           fused_mlp=cfg.fused_mlp, use_pallas=cfg.use_pallas,
+                           fused_mlp=self.fused_g, use_pallas=cfg.use_pallas,
                            generator=init, **common)
         self.D = Discriminator(dropout=cfg.ddropout, depth=cfg.ddepth,
                                head_mult=cfg.d_head_mult, generator=init,
@@ -184,8 +191,8 @@ class Trainer:
         """The train step of a numerics-ladder tier, on the same models and
         optimizers."""
         cfg = self.cfg
-        kw = dict(compute_dtype=self.compute_dtype, g_fused=cfg.fused_mlp,
-                  fused_critic=cfg.fused_critic, gp_f32=tier >= 1,
+        kw = dict(compute_dtype=self.compute_dtype, g_fused=self.fused_g,
+                  fused_critic=self.fused_d, gp_f32=tier >= 1,
                   f32_stats=tier >= 2, g_pallas=cfg.use_pallas)
         if tier >= 3:
             kw.update(compute_dtype=torch.float32, g_fused=False,

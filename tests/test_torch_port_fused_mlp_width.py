@@ -1,10 +1,11 @@
 """The fused edge tail at every width in the PyTorch port, on the CPU.
 
 K1/K2 take their widths C and H from the build, one library a width.  On the
-card a bf16 width whose block needs more than the 227 KB of shared memory an
-SM gives a block raises, naming the limit (``test_torch_port_card.py``).  On
-the CPU a ``fused_mlp`` block runs K1/K2's plain versions at every width,
-the narrow ones and those over the card's limit alike, so it keeps the
+card a bf16 width whose weights do not fit the 227 KB of shared memory an SM
+gives a block beside its buffers reads them through L2
+(``test_torch_port_card.py``).  On the CPU a ``fused_mlp`` block runs K1/K2's
+plain versions at every width, the narrow ones and the wide ones alike, so
+it keeps the
 Pallas kernel's rounding points: a bf16 block at dim 160 / mlp_ratio 5 is
 held against the flax block with ``fused_mlp`` (the Pallas kernel in the
 interpreter) from converted weights.  Tolerance bf16: atol 3e-2 + rtol 2^-7
@@ -71,8 +72,9 @@ def test_fused_block_runs_the_fused_tail_at_every_width(dim, ratio, dtype, monke
 
 
 def test_wide_bf16_fused_block_matches_flax(monkeypatch):
-    """dim 160 / mlp_ratio 5 in bf16 (its kernel block would need 527,360 B
-    of shared memory on the card): the port's fused block against flax's
+    """dim 160 / mlp_ratio 5 in bf16 (too wide for the card's kernels to
+    stage their weights; they read them through L2): the port's fused block
+    against flax's
     with ``fused_mlp``, from one flax init."""
     dim, ratio = 160, 5
     node, edge = _inputs(dim)

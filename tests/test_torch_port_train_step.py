@@ -15,6 +15,13 @@ model left unchanged reads 1); AdamW moments by relative norm error 1e-3
 (the critic's gradients come through the gradient penalty's double
 backward, whose second-order terms cancel: single elements of mu differ by
 up to 1e-4 relative).
+
+The port's ``--fused_block`` step (the megablock on G and on the critic's
+first-order passes; on the CPU the plain versions of K7 and K8, which
+``test_torch_port_fused_block.py`` holds against the Pallas kernels) is held
+against the same JAX f32 step under the same limits: JAX's own
+``fused_critic="block"`` step computes the same function, but compiling its
+interpreted Pallas kernels takes ~70 s on the CPU.
 """
 
 import numpy as np
@@ -205,6 +212,21 @@ def test_three_steps_match_jax(jax_f32, submodel, share_fake):
     the mol batch, which the test hands it as the drug batch."""
     run_and_compare(port_setup(jax_f32, submodel, share_fake), jnp.float32,
                     F32_TOL, drug_is_mol=submodel == "NoTarget")
+
+
+def test_fused_block_steps_match_jax(jax_f32, monkeypatch):
+    """``--fused_block``: G and the critic's first-order passes in
+    ``fused_mlp="block"`` mode (4 megablock forwards and 4 backwards a step
+    at depth 1), the gradient-penalty pass plain."""
+    from druggen_tpu_torch.ops import fused_block
+
+    calls = []
+    fwd = fused_block.fused_block_fwd
+    monkeypatch.setattr(fused_block, "fused_block_fwd",
+                        lambda *a: calls.append(1) or fwd(*a))
+    run_and_compare(port_setup(jax_f32, g_fused="block", fused_critic="block"),
+                    jnp.float32, F32_TOL)
+    assert len(calls) == 4 * 3
 
 
 def test_gradient_penalty_and_discriminator_loss_match_jax(jax_f32):

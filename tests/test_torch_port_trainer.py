@@ -157,7 +157,7 @@ def test_training_defaults_to_cuda_and_raises_without_a_card(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--mesh_model", "2"], ["--mesh_node", "2"], ["--mesh_data", "2"],
     ["--distributed"], ["--split_step"], ["--steps_per_dispatch", "4"],
-    ["--fused_block"], ["--scan_layers"],
+    ["--scan_layers"],
     ["--gp_mode", "fwdrev"], ["--features"], ["--resume"]])
 def test_unported_knobs_raise(tmp_path, flag):
     cfg = parse_train_args(_args(tmp_path, "--device", "cpu", *flag))
