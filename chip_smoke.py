@@ -10,7 +10,7 @@ exits non-zero without printing a result line:
 
 1. device   — card name, count and ``nvidia-smi`` name/power limit.
 2. build    — compile every kernel source with nvcc (``-Xptxas -v``), one
-               nvcc a source, all started together.
+               nvcc a (source, widths), all started together.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
@@ -19,16 +19,29 @@ exits non-zero without printing a result line:
                backward) at the training shape, at D 256 and on a ragged N,
                K6 twice for the same bits; K7 (``fused_block_fwd``, the
                megablock) and K8 (its backward) at the training shape and
-               at N 13, D 256, K8 twice for the same bits.
+               at N 13, D 256, K8 twice for the same bits; K9
+               (``fused_generator_logits``, the whole Generator) with the
+               trained r2_scale weights on corpus one-hots at the serving
+               shape and with random weights at N 13 / depth 2 and at dims
+               64 and 256; K3 (``edge_attention_v2_fwd``) and K4 (its
+               backward) at the training shape and on a ragged N, K4 twice
+               for the same bits.
 4. serving  — the port's ``InferenceEngine.run()`` on the trained r2_scale
                Generator (bf16, fused edge tail), 4 batches of 512 graphs;
                the kernel launch counts of that run are checked.
-5. agree    — kernel path vs the plain bf16 path on one batch (labels).
+4u. serving with ``use_pallas`` — the same run through K9: one K9 launch a
+               forward and no K1.
+4a. the v2 op — ``edge_modulated_attention`` forward and backward at the
+               training shape through autograd: one K3 and one K4 launch.
+5. agree    — kernel path vs the plain bf16 path on one batch (labels);
+               K9 vs its plain version (held), f32 K9 vs the f32 plain
+               Generator (held), bf16 K9 vs slice 1's K1 path (printed).
 6. timing   — each kernel, its plain version and an eager yardstick, CUDA
                events, beside the card's bound (K1, K2, also at 128/512;
-               K5, K6, K7, K8).
-7. profile  — one serving forward under torch.profiler: device time by
-               kernel and the card's idle share of the forward.
+               K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4).
+7. profile  — one serving forward under torch.profiler, without and with
+               ``use_pallas``: device time by kernel and the card's idle
+               share of the forward.
 8. training — the port's ``Trainer`` (what ``python -m
                druggen_tpu_torch.train`` runs) at the full r2_scale config
                (bf16, fused_mlp + fused_critic, batch 512) for one epoch of
@@ -152,7 +165,12 @@ KERNEL_BUILDS = (
     ("fused_block_bwd", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
     ("fused_block", {"KERNEL_C": BLOCK_WIDE_DIM, "KERNEL_H": BLOCK_WIDE_HIDDEN}),
     ("fused_block_bwd", {"KERNEL_C": BLOCK_WIDE_DIM, "KERNEL_H": BLOCK_WIDE_HIDDEN}),
+    ("fused_attention_v2", {}),
+    ("fused_attention_v2_bwd", {}),
 )
+# K9 at the published widths, at dim 64 with mlp_ratio 2 and at dim 256
+K9_WIDTHS = ((DIM, HIDDEN), (NARROW_DIM, 2 * NARROW_DIM), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN))
+KERNEL_BUILDS += tuple(("fused_generator", {"KERNEL_C": c, "KERNEL_H": h}) for c, h in K9_WIDTHS)
 GRAD_NAMES = ("dg1", "dbl1", "dw1", "db1", "dw2", "db2", "dg2", "dbl2")
 # K5/K6: the fused edge attention.  8 heads; the training shape, D 256 and
 # a ragged N.  Outputs against the plain version, compared in f32: bf16
@@ -195,6 +213,22 @@ BLOCK_SHAPES = ((TRAIN_BATCH, N_ATOMS, DIM, HIDDEN),
 TOL_BLOCK = {torch.bfloat16: (3e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
 TOL_BLOCK_GRAD = {torch.bfloat16: (1e-2, 2 ** -7), torch.float32: (1e-4, 1e-4)}
 TOL_BLOCK_PARAM_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# K9, the whole generator, against its plain version (the same rounding
+# points), compared in f32: bf16 logits |err| <= 3e-2 + 2^-7 |ref| and mean
+# <= 2e-3 (f32 sums in another order can move an intermediate by one bf16
+# rounding, which the later layers carry), f32 1e-4.  Labels >= 99.9 % equal
+# with the trained r2_scale weights (decisive logits); with random weights
+# a differing label must be a near tie (the plain logits' top two within
+# twice the bound).  K9_SMALL: batch, N and depth of the random-weight case.
+TOL_K9 = {torch.bfloat16: (3e-2, 2 ** -7), torch.float32: (1e-4, 0.0)}
+K9_SMALL = (64, 13, 2)
+# K3/K4, the v2 op, against their plain versions as K5's outputs (TOL_ATTN),
+# at the training shape and on a ragged N.  Their f32 operations per (edge
+# row, channel), from the plain versions: K3 the modulate chain (5) and the
+# softmax and weighted sum (7); K4 base, mod and t (5), the softmax (5),
+# dot (3), dt (3), dbase and de (5), and the dq, dk, dv sums (6).
+V2_SHAPES = ((TRAIN_BATCH, N_ATOMS, DIM), (7, 13, DIM))
+V2_OPS = (12, 27)
 
 
 @contextlib.contextmanager
@@ -555,6 +589,153 @@ def block_bounds(b: int, n: int, d: int, h: int, dtype) -> tuple:
     return tuple(out)
 
 
+def symmetric_onehots(b: int, n: int, m_dim: int, b_dim: int, gen) -> tuple:
+    """Random vertex-symmetric one-hot adjacencies and one-hot atoms (f32)."""
+    lab = torch.randint(0, b_dim, (b, n, n), generator=gen, device="cuda").triu(1)
+    z_e = F.one_hot(lab + lab.transpose(1, 2), b_dim).float()
+    z_n = F.one_hot(torch.randint(0, m_dim, (b, n), generator=gen, device="cuda"), m_dim).float()
+    return z_e, z_n
+
+
+def check_generator_kernel(fg, gw, z_e, z_n, dtype, label: str, labels_held: bool) -> dict:
+    """K9 against its plain version on the same inputs (see TOL_K9)."""
+    z_e, z_n = z_e.to(dtype), z_n.to(dtype)
+    got = fg.fused_generator_logits(gw, z_e, z_n, heads=HEADS)
+    torch.cuda.synchronize()
+    ref = fg.fused_generator_logits_reference(gw.weights, gw.depth, z_e, z_n, heads=HEADS)
+    atol, rtol = TOL_K9[dtype]
+    max_err = mean_err = 0.0
+    same = total = ties = 0
+    ok = True
+    for g_, r_ in zip(got, ref):
+        if g_.shape != r_.shape or g_.dtype != dtype or not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"K9 logits {g_.shape} {g_.dtype}, or not finite ({label})")
+        g_, r_ = g_.float(), r_.float()
+        err = (g_ - r_).abs()
+        bound = atol + rtol * r_.abs()
+        ok &= bool((err <= bound).all())
+        max_err = max(max_err, err.max().item())
+        mean_err = max(mean_err, err.mean().item())
+        lab_g, lab_r = g_.argmax(-1, keepdim=True), r_.argmax(-1, keepdim=True)
+        margin = r_.gather(-1, lab_r) - r_.gather(-1, lab_g)
+        differ = lab_g != lab_r
+        same += int((~differ).sum().item())
+        total += lab_g.numel()
+        ties += int((differ & (margin <= 2 * bound.gather(-1, lab_r))).sum().item())
+    agree = same / total
+    b, n = z_e.shape[:2]
+    print(f"   K9 {label} B {b} N {n} dim {gw.dim} H {gw.hidden} depth {gw.depth} "
+          f"{str(dtype):>14}: logits max |kernel - plain| {max_err:.3e}, mean {mean_err:.3e}; "
+          f"labels equal {agree:.6f} ({total - same} of {total} differ, {ties} of them "
+          f"near ties)", flush=True)
+    if dtype == torch.bfloat16:
+        ok &= mean_err <= TOL_BF16_MEAN
+    ok &= agree >= MIN_LABEL_AGREEMENT if labels_held else ties == total - same
+    if not ok:
+        raise AssertionError(f"K9 disagrees with its plain version ({label}, {dtype}): max "
+                             f"{max_err}, mean {mean_err}, labels {agree}, near ties {ties}")
+    return {"max_abs_err": max_err, "mean_abs_err": mean_err, "label_agreement": agree}
+
+
+def generator_bound(b: int, n: int, gw, dtype) -> tuple[float, str]:
+    """Least milliseconds for one K9 call: the one-hots read once, the
+    logits written once and the weights read once, against its products
+    (per edge row the input MLP, e, out_e and MLP2 of each depth, and the
+    readout; per atom the input MLP, q, k, v, out_n and the MLP of each
+    depth, and the readout), bf16 at the bf16 rate, f32 at full f32
+    accuracy on the faster route (3xTF32)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    c, h, m_dim, b_dim, depth = gw.dim, gw.hidden, gw.m_dim, gw.b_dim, gw.depth
+    edge = 2 * b * n * n * (b_dim * 64 + 64 * c + depth * (2 * c * c + 2 * c * h) + c * b_dim)
+    node = 2 * b * n * (m_dim * 64 + 64 * c + depth * (4 * c * c + 2 * c * h) + c * m_dim)
+    nbytes = 2 * (b * n * n * b_dim + b * n * m_dim) * item + sum(
+        w.numel() for w in gw.weights) * item
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    rate = PEAK_FLOPS_S[torch.bfloat16] if dtype == torch.bfloat16 else PEAK_3XTF32_S
+    t_ops = (edge + node) / rate * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_v2_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = False) -> dict:
+    """K3 on edge_pre and node_agg and K4 on dq, dk, dv, de, each against its
+    plain version on the same inputs (TOL_ATTN); ``twice``: K4 run again
+    must give the same bits."""
+    acts, _, (ge, gn) = attn_inputs(b, n, d, dtype, gen)
+    atol, rtol = TOL_ATTN[dtype]
+    errs = {}
+    for kernel, plain, names, args in (
+            (fa.edge_attention_v2_fwd, fa.edge_attention_v2_fwd_reference,
+             ("edge_pre", "node_agg"), (*acts, HEADS)),
+            (fa.edge_attention_v2_bwd, fa.edge_attention_v2_bwd_reference,
+             ("dq", "dk", "dv", "de"), (*acts, ge, gn, HEADS))):
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        for name, g_, r_ in zip(names, got, ref):
+            if g_.shape != r_.shape or g_.dtype != dtype or not torch.isfinite(g_.float()).all():
+                raise AssertionError(f"{name}: {g_.shape} {g_.dtype}, or not finite")
+            err = (g_.float() - r_.float()).abs()
+            errs[name] = err.max().item()
+            if not bool((err <= atol + rtol * r_.float().abs()).all()):
+                raise AssertionError(f"K3/K4 {name} disagrees with its plain version "
+                                     f"({dtype}, B {b} N {n} D {d}): max {errs[name]}")
+        del ref
+    same = None
+    if twice:
+        first = fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS)
+        again = fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS)
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+    print(f"   K3/K4 B {b} N {n} D {d} {str(dtype):>14}: max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + ("" if same is None else f"; K4 twice, same bits: {same}"), flush=True)
+    if same is False:
+        raise AssertionError("K4 gave other bits on a second call")
+    return {"max_abs_err": max(errs["edge_pre"], errs["node_agg"]),
+            "bwd_max_abs_err": max(errs[k] for k in ("dq", "dk", "dv", "de"))}
+
+
+def v2_bounds(b: int, n: int, d: int, dtype) -> tuple:
+    """Least milliseconds for one K3 and one K4 call: each input read once
+    and each output written once (K3: q, k, v, e in, edge_pre, node out; K4:
+    q, k, v, e, ge, gn in, dq, dk, dv, de out), against their f32
+    operations (V2_OPS an edge row and channel) at the f32 FMA rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    rows, nodes = b * n * n, b * n
+    out = []
+    for nbytes, ops in (((3 * nodes + rows) * d * item + (rows + nodes) * d * item,
+                         V2_OPS[0] * rows * d),
+                        ((4 * nodes + 2 * rows) * d * item + (3 * nodes + rows) * d * item,
+                         V2_OPS[1] * rows * d)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_FFMA_S * 1e3
+        out.append((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+    return tuple(out)
+
+
+def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
+    """One call of ``fn`` (a serving forward) under torch.profiler: its
+    CUDA-event time, device time by kernel and the card's idle share."""
+    fwd_ms = cuda_ms(fn, 5)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(k[1] for k in kernels)
+    print(f"   serving forward, batch {SERVE_BATCH}, {label}, on {name} ({smi_line}): "
+          f"{fwd_ms:.3f} ms (CUDA events); kernels {busy:.3f} ms; idle share "
+          f"{max(0.0, 1 - busy / fwd_ms):.3f}")
+    for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
+        print(f"   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{count:<3d} {key[:90]}")
+    if not kernels:
+        print("   the profiler recorded no device time")
+    return {"forward_ms": fwd_ms, "busy_ms": busy}
+
+
 def snapshot(opts) -> list:
     """Parameters and optimizer state of each optimizer (copies)."""
     return [(o.flat.clone(), dataclasses.replace(
@@ -879,11 +1060,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from druggen_tpu_torch.chem.vocab import Vocab
     from druggen_tpu_torch.config import InferenceConfig
-    from druggen_tpu_torch.data.dataset import BatchIterator
+    from druggen_tpu_torch.data.dataset import BatchIterator, load_dataset
     from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.interop.msgpack_ckpt import read_flax_checkpoint
+    from druggen_tpu_torch.interop.weights import flax_generator_to_torch, to_torch_tensors
+    from druggen_tpu_torch.models import Generator
     from druggen_tpu_torch.ops import _build
     from druggen_tpu_torch.ops import fused_attention as fa
     from druggen_tpu_torch.ops import fused_block as fb
+    from druggen_tpu_torch.ops import fused_generator as fg
     from druggen_tpu_torch.ops.fused_mlp import (
         _bwd_lib,
         _kernel_lib,
@@ -933,6 +1118,12 @@ def main() -> int:
                   f"f32 {fb._fwd_lib(c, h).fused_block_fwd_smem_bytes(N_ATOMS, 0)} B; K8 "
                   f"rows pass {fb._bwd_lib(c, h).fused_block_bwd_smem_bytes()} B a block",
                   flush=True)
+        for c, h in K9_WIDTHS:
+            lib = fg._kernel_lib(c, h)
+            print(f"   fused_generator C {c} H {h} dynamic shared memory at N {N_ATOMS} "
+                  f"(m_dim 8, b_dim 5), the larger of its node and edge blocks: bf16 "
+                  f"{lib.fused_generator_smem_bytes(N_ATOMS, 8, 5, 1)} B, f32 "
+                  f"{lib.fused_generator_smem_bytes(N_ATOMS, 8, 5, 0)} B", flush=True)
 
     counted = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln,
                "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd,
@@ -940,8 +1131,22 @@ def main() -> int:
                "edge_attention_bwd": fa.edge_attention_bwd,
                "fused_block_fwd": fb.fused_block_fwd,
                "fused_block_bwd": fb.fused_block_bwd}
+    # the serving paths' kernels beside the training paths' (which count
+    # only the first six)
+    counted_all = {**counted, "fused_generator_logits": fg.fused_generator_logits,
+                   "edge_attention_v2_fwd": fa.edge_attention_v2_fwd,
+                   "edge_attention_v2_bwd": fa.edge_attention_v2_bwd}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = tail_params(gen, "cuda")
+    # the serving corpus: the first molecules of the corpus, featurised once
+    # (the engines below read the cache)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    inf_smi = os.path.join(tmp.name, f"chembl_like_{SERVE_MOLECULES}.smi")
+    with open(SMILES_FILE) as src, open(inf_smi, "w") as dst:
+        for _, line in zip(range(SERVE_MOLECULES), src):
+            dst.write(line)
+    with open(VOCAB_JSON) as f:
+        vocab = Vocab.from_json(f.read())
     with phase("3 kernels vs plain"):
         k1 = check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, params,
                           ROWS, torch.bfloat16, gen)
@@ -991,15 +1196,44 @@ def main() -> int:
                     twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
                 torch.cuda.empty_cache()
         k78 = block_checks[(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)]
+        torch.cuda.empty_cache()
+        # K9: the trained r2_scale weights on corpus one-hots at the serving
+        # shape; random weights at N 13 / depth 2 at each width, and at N 45
+        # / depth 1 at the other widths
+        t0 = time.perf_counter()
+        corpus = load_dataset(inf_smi, vocab, N_ATOMS, tmp.name)
+        print(f"   featurise {len(corpus)} corpus molecules: {time.perf_counter() - t0:.2f} s")
+        xs, as_ = next(iter(BatchIterator(corpus, SERVE_BATCH, seed=SEED)))
+        z_e = F.one_hot(torch.as_tensor(as_).long().cuda(), vocab.b_dim).float()
+        z_n = F.one_hot(torch.as_tensor(xs).long().cuda(), vocab.m_dim).float()
+        trained = fg.GeneratorWeights(*fg.extract_generator_weights(to_torch_tensors(
+            flax_generator_to_torch(read_flax_checkpoint(
+                os.path.join(CKPT_DIR, "DrugGEN-G.ckpt"))))))
+        k9_checks = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            k9_checks[dtype] = check_generator_kernel(
+                fg, trained, z_e, z_n, dtype, "trained r2_scale, corpus", labels_held=True)
+        for (c, h), (b, n, depth) in [(w, K9_SMALL) for w in K9_WIDTHS] + [
+                (w, (K9_SMALL[0], N_ATOMS, 1)) for w in K9_WIDTHS[1:]]:
+            gw = fg.GeneratorWeights.of(Generator(
+                act="relu", vertexes=n, edges=vocab.b_dim, nodes=vocab.m_dim, dropout=0.0,
+                dim=c, depth=depth, heads=HEADS, mlp_ratio=h // c,
+                generator=torch.Generator().manual_seed(SEED)))
+            ze_r, zn_r = symmetric_onehots(b, n, vocab.m_dim, vocab.b_dim, gen)
+            for dtype in (torch.bfloat16, torch.float32):
+                check_generator_kernel(fg, gw, ze_r, zn_r, dtype, "random", labels_held=False)
+        k9 = k9_checks[torch.bfloat16]
+        torch.cuda.empty_cache()
+        v2_checks = {}
+        for b, n, d in V2_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                v2_checks[(b, n, d, dtype)] = check_v2_kernels(
+                    fa, b, n, d, dtype, gen,
+                    twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
+                torch.cuda.empty_cache()
+        k34 = v2_checks[(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)]
 
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     with phase("4 serving"):
-        inf_smi = os.path.join(tmp.name, f"chembl_like_{SERVE_MOLECULES}.smi")
-        with open(SMILES_FILE) as src, open(inf_smi, "w") as dst:
-            for _, line in zip(range(SERVE_MOLECULES), src):
-                dst.write(line)
-        with open(VOCAB_JSON) as f:
-            vocab = Vocab.from_json(f.read())
         cfg = InferenceConfig(
             submodel="DrugGEN", inference_model=CKPT_DIR,
             sample_num=SERVE_BATCH * SERVE_BATCHES, disable_correction=True,
@@ -1012,10 +1246,10 @@ def main() -> int:
         print(f"   engine set-up (featurise {len(engine.data)} molecules, "
               f"read checkpoint): {time.perf_counter() - t0:.2f} s")
 
-        for fn in counted.values():
+        for fn in counted_all.values():
             fn.launches = 0
         results = engine.run()
-        launches = {key: fn.launches for key, fn in counted.items()}
+        launches = {key: fn.launches for key, fn in counted_all.items()}
 
         n_batches = len(engine.timings)
         expected = cfg.depth * n_batches
@@ -1024,9 +1258,7 @@ def main() -> int:
         if n_batches != SERVE_BATCHES or launches["fused_ln_mlp_ln_fwd"] != expected:
             raise AssertionError("the serving run did not go through the "
                                  "fused kernel once per block per batch")
-        if any(launches[k] for k in ("fused_ln_mlp_ln_bwd", "edge_attention_fwd",
-                                     "edge_attention_bwd", "fused_block_fwd",
-                                     "fused_block_bwd")):
+        if any(n_ for k, n_ in launches.items() if k != "fused_ln_mlp_ln_fwd"):
             raise AssertionError("the serving run launched a kernel off its path")
         with open(os.path.join(cfg.output_dir, cfg.submodel,
                                "inference_drugs.csv")) as f:
@@ -1048,6 +1280,64 @@ def main() -> int:
               f"end to end "
               f"with host decode {graphs / (sum(fwd) + sum(dec)):.1f} "
               f"molecules/s (all batches)", flush=True)
+
+    with phase("4u serving with use_pallas"):
+        cfg_p = dataclasses.replace(cfg, use_pallas=True,
+                                    output_dir=os.path.join(tmp.name, "out_pallas"))
+        t0 = time.perf_counter()
+        engine_p = InferenceEngine(cfg_p, vocab=vocab)
+        print(f"   engine set-up: {time.perf_counter() - t0:.2f} s")
+        for fn in counted_all.values():
+            fn.launches = 0
+        results_p = engine_p.run()
+        launches_p = {key: fn.launches for key, fn in counted_all.items()}
+        n_batches = len(engine_p.timings)
+        print(f"   launches: {launches_p} over {n_batches} batches (expected one K9 a "
+              f"forward, {2 * cfg.depth + 1} device launches each, and no other kernel)")
+        if n_batches != SERVE_BATCHES or launches_p["fused_generator_logits"] != n_batches:
+            raise AssertionError("the use_pallas serving run did not go through K9 once "
+                                 "per batch")
+        if any(n_ for k, n_ in launches_p.items() if k != "fused_generator_logits"):
+            raise AssertionError("the use_pallas serving run launched another kernel")
+        with open(os.path.join(cfg_p.output_dir, cfg_p.submodel, "inference_drugs.csv")) as f:
+            smiles_p = [row["SMILES"] for row in csv.DictReader(f)]
+        if not smiles_p:
+            raise AssertionError("the use_pallas generator produced no valid molecule")
+        print(f"   validity {results_p['validity']}, generator_validity "
+              f"{results_p['generator_validity']}, uniqueness {results_p['uniqueness']}, "
+              f"{len(smiles_p)} molecules; e.g. {smiles_p[:3]}")
+        fwd_p = [t["forward_s"] for t in engine_p.timings]
+        dec_p = [t["decode_s"] for t in engine_p.timings]
+        steady_p = SERVE_BATCH / statistics.median(fwd_p[1:])
+        print(f"   forward windows (s): {[round(x, 4) for x in fwd_p]}; "
+              f"decode (s): {[round(x, 3) for x in dec_p]}")
+        print(f"   use_pallas serving rate on {name} ({smi_line}): device path "
+              f"{steady_p:.1f} graphs/s (median window of batches 2-{n_batches}); end to "
+              f"end with host decode "
+              f"{SERVE_BATCH * n_batches / (sum(fwd_p) + sum(dec_p)):.1f} molecules/s "
+              f"(all batches)", flush=True)
+
+    with phase("4a the v2 attention op"):
+        acts, _, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
+        hd = DIM // HEADS
+        leaves = [t.reshape(TRAIN_BATCH, N_ATOMS, HEADS, hd).requires_grad_() for t in acts[:3]]
+        leaves.append(acts[3].reshape(TRAIN_BATCH, N_ATOMS, N_ATOMS, HEADS, hd).requires_grad_())
+        for fn in counted_all.values():
+            fn.launches = 0
+        edge_pre, node_agg = fa.edge_modulated_attention(*leaves)
+        torch.autograd.backward((edge_pre, node_agg), (ge, gn))
+        torch.cuda.synchronize()
+        launches_v2 = {key: fn.launches for key, fn in counted_all.items()}
+        print(f"   edge_modulated_attention forward and backward, B {TRAIN_BATCH} N {N_ATOMS} "
+              f"D {DIM} bf16: launches {launches_v2}")
+        if (launches_v2["edge_attention_v2_fwd"], launches_v2["edge_attention_v2_bwd"]) != (1, 1) \
+                or sum(launches_v2.values()) != 2:
+            raise AssertionError("the v2 op did not go through K3 and K4 once each")
+        if not all(t.grad is not None and t.grad.shape == t.shape
+                   and torch.isfinite(t.grad.float()).all() for t in leaves):
+            raise AssertionError("the v2 op's gradients are missing or not finite")
+        del acts, ge, gn, leaves, edge_pre, node_agg
+        torch.cuda.empty_cache()
 
     with phase("5 agreement"):
         x, a = next(iter(BatchIterator(engine.data, SERVE_BATCH, seed=cfg.seed)))
@@ -1072,7 +1362,30 @@ def main() -> int:
         same32 = (n32 == n_plain).sum().item() + (e32 == e_plain).sum().item()
         print(f"   plain f32 vs plain bf16 labels (information): "
               f"{same32 / total:.6f}", flush=True)
-        del engine32
+
+        def agreement(lhs, rhs) -> float:
+            return sum((p_ == q_).sum().item() for p_, q_ in zip(lhs, rhs)) / total
+
+        k9_labels = engine_p.forward(a, x)
+        z_e5 = F.one_hot(torch.as_tensor(a).long().cuda(), vocab.b_dim).bfloat16()
+        z_n5 = F.one_hot(torch.as_tensor(x).long().cuda(), vocab.m_dim).bfloat16()
+        k9_plain = [t.argmax(-1) for t in fg.fused_generator_logits_reference(
+            engine_p.k9_weights.weights, engine_p.k9_weights.depth, z_e5, z_n5,
+            heads=cfg.heads)]
+        engine32p = InferenceEngine(
+            dataclasses.replace(cfg, compute_dtype="float32", fused_mlp=False, use_pallas=True),
+            vocab=vocab, g_state_dict=engine.G.state_dict())
+        k9_32 = engine32p.forward(a, x)
+        agree_plain = agreement(k9_labels, k9_plain)
+        agree_32 = agreement(k9_32, (n32, e32))
+        agree_k1 = agreement(k9_labels, (nk, ek))
+        print(f"   use_pallas: K9 vs K9's plain version, bf16 labels {agree_plain:.6f}; f32 K9 "
+              f"vs the f32 plain Generator {agree_32:.6f}; bf16 K9 vs slice 1's K1 path "
+              f"(information: they round at other points) {agree_k1:.6f}", flush=True)
+        if min(agree_plain, agree_32) < MIN_LABEL_AGREEMENT:
+            raise AssertionError(f"K9 label agreement {agree_plain} / {agree_32} < "
+                                 f"{MIN_LABEL_AGREEMENT}")
+        del engine32, engine32p
     tmp.cleanup()
 
     with phase("6 timing"):
@@ -1294,27 +1607,75 @@ def main() -> int:
         del bacts, bparams, gy, gnb, bleaves, b_out
         torch.cuda.empty_cache()
 
+        # K9 at the serving shape, bf16: the trained weights on the corpus
+        # one-hots of phase 3.  Yardstick: slice 1's forward on the same
+        # one-hots, the eager bf16 Generator with K1 (the engine's G); no one
+        # PyTorch call computes the Generator
+        z_e_b, z_n_b = z_e.bfloat16(), z_n.bfloat16()
+        with torch.inference_mode():
+            k9_a = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e_b, z_n_b,
+                                                             heads=HEADS), 20)
+            k9_p = cuda_ms(lambda: fg.fused_generator_logits_reference(
+                trained.weights, trained.depth, z_e_b, z_n_b, heads=HEADS), 3, warmup=1)
+            s1_ms = cuda_ms(lambda: engine.G(z_e_b, z_n_b), 20)
+            k9_b = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e_b, z_n_b,
+                                                             heads=HEADS), 20)
+            k9_f32 = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e, z_n, heads=HEADS),
+                             3, warmup=1)
+        k9_ms = (k9_a + k9_b) / 2
+        bound9, by9 = generator_bound(SERVE_BATCH, N_ATOMS, trained, torch.bfloat16)
+        bound9_32, by9_32 = generator_bound(SERVE_BATCH, N_ATOMS, trained, torch.float32)
+        print(f"   fused_generator_logits (K9) bf16 B {SERVE_BATCH} N {N_ATOMS} dim {DIM} "
+              f"H {HIDDEN} depth {trained.depth} on {name} ({smi_line}):")
+        print(f"   kernel {k9_ms:.4f} ms (runs {k9_a:.4f}, {k9_b:.4f}; {2 * trained.depth + 1} "
+              f"device launches a call); plain {k9_p:.4f} ms; slice 1's forward (eager bf16 "
+              f"Generator with K1) {s1_ms:.4f} ms; bound {bound9:.4f} ms ({by9}); kernel at "
+              f"{100 * bound9 / k9_ms:.1f}% of the bound; f32 twin {k9_f32:.4f} ms (bound "
+              f"{bound9_32:.4f} ms, {by9_32}, 3xTF32)", flush=True)
+        torch.cuda.empty_cache()
+
+        # K3 / K4 at the training shape, bf16.  Yardstick: the eager
+        # reference_attention (the op's plain composite) and its autograd
+        # backward
+        acts, _, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
+        v_leaves = [t.detach().reshape(TRAIN_BATCH, N_ATOMS, HEADS, hd).requires_grad_()
+                    for t in acts[:3]]
+        v_leaves.append(acts[3].detach().reshape(TRAIN_BATCH, N_ATOMS, N_ATOMS, HEADS, hd)
+                        .requires_grad_())
+        with torch.no_grad():
+            k3_a = cuda_ms(lambda: fa.edge_attention_v2_fwd(*acts, HEADS), 20)
+            k3_p = cuda_ms(lambda: fa.edge_attention_v2_fwd_reference(*acts, HEADS), 3,
+                           warmup=1)
+            k3_c = cuda_ms(lambda: fa.reference_attention(*v_leaves), 10)
+            k3_b = cuda_ms(lambda: fa.edge_attention_v2_fwd(*acts, HEADS), 20)
+            k4_a = cuda_ms(lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS), 20)
+            k4_p = cuda_ms(lambda: fa.edge_attention_v2_bwd_reference(*acts, ge, gn, HEADS),
+                           3, warmup=1)
+        r_out = fa.reference_attention(*v_leaves)
+        k4_c = cuda_ms(lambda: torch.autograd.grad(r_out, v_leaves, (ge, gn),
+                                                   retain_graph=True), 10)
+        k4_b = cuda_ms(lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS), 20)
+        k3_ms, k4_ms = (k3_a + k3_b) / 2, (k4_a + k4_b) / 2
+        (bound3, by3), (bound4, by4) = v2_bounds(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)
+        print(f"   edge_attention_v2_fwd (K3) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} on "
+              f"{name} ({smi_line}):")
+        print(f"   kernel {k3_ms:.4f} ms (runs {k3_a:.4f}, {k3_b:.4f}); plain {k3_p:.4f} ms; "
+              f"eager reference_attention {k3_c:.4f} ms; bound {bound3:.4f} ms ({by3}); "
+              f"kernel at {100 * bound3 / k3_ms:.1f}% of the bound")
+        print(f"   edge_attention_v2_bwd (K4) bf16, same shape:")
+        print(f"   kernel {k4_ms:.4f} ms (runs {k4_a:.4f}, {k4_b:.4f}); plain {k4_p:.4f} ms; "
+              f"eager autograd backward of reference_attention {k4_c:.4f} ms; bound "
+              f"{bound4:.4f} ms ({by4}); kernel at {100 * bound4 / k4_ms:.1f}% of the bound",
+              flush=True)
+        del acts, ge, gn, v_leaves, r_out
+        torch.cuda.empty_cache()
+
     with phase("7 profile"):
         x, a = next(iter(BatchIterator(engine.data, SERVE_BATCH, seed=cfg.seed)))
-        fwd_ms = cuda_ms(lambda: engine.forward(a, x), 5)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            engine.forward(a, x)
-            torch.cuda.synchronize()
-        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy = sum(k[1] for k in kernels)
-        print(f"   serving forward, batch {SERVE_BATCH}, bf16 + fused tail, "
-              f"on {name} ({smi_line}): {fwd_ms:.3f} ms (CUDA events); "
-              f"kernels {busy:.3f} ms; idle share "
-              f"{max(0.0, 1 - busy / fwd_ms):.3f}")
-        for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
-            print(f"   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{count:<3d} {key[:90]}")
-        if not kernels:
-            print("   the profiler recorded no device time")
+        prof_k1 = profile_forward(lambda: engine.forward(a, x), "bf16 + fused tail",
+                                  name, smi_line)
+        prof_k9 = profile_forward(lambda: engine_p.forward(a, x), "bf16, use_pallas (K9)",
+                                  name, smi_line)
 
     train = training_phases(name, smi_line, counted)
 
@@ -1325,6 +1686,7 @@ def main() -> int:
         "replaces": "druggen_tpu/ops/fused_mlp.py:72",
         "launches": launches["fused_ln_mlp_ln_fwd"],
         "launches_by_path": {"serving": launches["fused_ln_mlp_ln_fwd"],
+                             "serving_use_pallas": launches_p["fused_ln_mlp_ln_fwd"],
                              "training": train["launches"]["fused_ln_mlp_ln_fwd"],
                              "training_fused_block":
                                  train["launches_block"]["fused_ln_mlp_ln_fwd"]},
@@ -1435,6 +1797,52 @@ def main() -> int:
         "bound_ffma_ms": ffma8,
         "library_ms": None,
         "eager_autograd_ms": k8_c,
+    }, {
+        "name": "edge_attention_v2_fwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_attention_v2.cu",
+        "replaces": "druggen_tpu/ops/fused_attention.py:56",
+        "launches": launches_v2["edge_attention_v2_fwd"],
+        "max_abs_err": k34["max_abs_err"],
+        "ms": k3_ms,
+        "plain_ms": k3_p,
+        "bound_ms": bound3,
+        "bound_by": by3,
+        "library_ms": None,
+        "eager_composite_ms": k3_c,
+    }, {
+        "name": "edge_attention_v2_bwd",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_attention_v2_bwd.cu",
+        "replaces": "druggen_tpu/ops/fused_attention.py:101",
+        "launches": launches_v2["edge_attention_v2_bwd"],
+        "max_abs_err": k34["bwd_max_abs_err"],
+        "ms": k4_ms,
+        "plain_ms": k4_p,
+        "bound_ms": bound4,
+        "bound_by": by4,
+        "library_ms": None,
+        "eager_autograd_ms": k4_c,
+    }, {
+        "name": "fused_generator_logits",
+        "route": "cuda",
+        "source": "druggen_tpu_torch/ops/csrc/fused_generator.cu",
+        "replaces": "druggen_tpu/ops/fused_generator.py:121",
+        "launches": launches_p["fused_generator_logits"],
+        "launches_by_path": {"serving": launches["fused_generator_logits"],
+                             "serving_use_pallas": launches_p["fused_generator_logits"]},
+        "device_launches_per_call": 2 * trained.depth + 1,
+        "max_abs_err": k9["max_abs_err"],
+        "label_agreement": k9["label_agreement"],
+        "ms": k9_ms,
+        "plain_ms": k9_p,
+        "bound_ms": bound9,
+        "bound_by": by9,
+        "library_ms": None,
+        "slice1_forward_ms": s1_ms,
+        "f32_ms": k9_f32,
+        "serving_forward_ms": {"slice1": prof_k1["forward_ms"],
+                               "use_pallas": prof_k9["forward_ms"]},
     }]}
     print(json.dumps(record))
     print(nvidia_smi_line())

@@ -7,9 +7,9 @@ that the JAX CLI's command lines parse unchanged; the port ignores it and
 runs on ``device``.  Knobs of the JAX package that the port does not run
 (the parallel modes, ``split_step``, ``steps_per_dispatch > 1``,
 ``scan_layers``, ``gp_mode=fwdrev``, ``--features``, ``--resume``) parse
-and raise ``NotImplementedError`` in the trainer;
-``InferenceConfig.use_pallas`` (the whole-generator kernel) raises in the
-engine.  ``TrainConfig.use_pallas`` runs the Generator's attention through
+and raise ``NotImplementedError`` in the trainer.
+``InferenceConfig.use_pallas`` serves through the whole-generator kernel
+(K9).  ``TrainConfig.use_pallas`` runs the Generator's attention through
 the fused edge-attention kernels, ``TrainConfig.fused_block`` every encoder
 block's edge stream through the megablock kernels (the Generator and the
 critic's first-order passes).
@@ -198,7 +198,7 @@ class InferenceConfig:
     # extensions of the JAX package
     platform: str | None = None          # JAX backend name; unused here
     compute_dtype: str = "float32"
-    use_pallas: bool = False             # whole-generator kernel: not ported
+    use_pallas: bool = False             # whole-generator kernel (K9)
     fused_mlp: bool = False              # fused edge-tail kernel (K1)
     output_dir: str = "experiments/inference"
     # the port's own

@@ -1,7 +1,9 @@
 """Inference engine (port of ``druggen_tpu/infer/engine.py:39-196``).
 
 Load a trained generator, stream an inference dataset through it (one-hot
--> Generator -> argmax on the device), decode the labels to molecules on the
+-> Generator -> argmax on the device; with ``use_pallas`` the Generator is
+the whole-generator kernel K9, ``ops/fused_generator.py``, one wrapper call
+a forward, as in JAX :89-107), decode the labels to molecules on the
 host, keep the largest fragment with ``*``->``C``, loop until ``sample_num``
 valid molecules are collected or the batch cap is hit, then report
 validity, generator validity and uniqueness and write
@@ -31,6 +33,7 @@ from druggen_tpu_torch.interop.msgpack_ckpt import read_flax_checkpoint
 from druggen_tpu_torch.interop.weights import flax_generator_to_torch, to_torch_tensors
 from druggen_tpu_torch.metrics import molecular as mm
 from druggen_tpu_torch.models import Generator
+from druggen_tpu_torch.ops.fused_generator import GeneratorWeights, fused_generator_logits
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,9 +62,6 @@ class InferenceEngine:
                  g_state_dict: dict | None = None,
                  device: str | torch.device | None = None,
                  compute_dtype: str | torch.dtype | None = None):
-        if cfg.use_pallas:
-            raise NotImplementedError("use_pallas (the whole-generator "
-                                      "kernel) is not ported yet")
         self.device = resolve_device(device or cfg.device)
         dtype = compute_dtype or cfg.compute_dtype
         self.compute_dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
@@ -88,13 +88,16 @@ class InferenceEngine:
             depth=cfg.depth, heads=cfg.heads, mlp_ratio=cfg.mlp_ratio,
             dtype=None if self.compute_dtype == torch.float32
             else self.compute_dtype,
-            fused_mlp=cfg.fused_mlp)
+            fused_mlp=cfg.fused_mlp, use_pallas=cfg.use_pallas)
         if g_state_dict is None:
             path = os.path.join(cfg.inference_model, f"{cfg.submodel}-G.ckpt")
             g_state_dict = to_torch_tensors(
                 flax_generator_to_torch(read_flax_checkpoint(path)))
         self.G.load_state_dict(g_state_dict)
         self.G.to(self.device).eval()
+        # use_pallas: the forward runs K9 on these weights (packed at its
+        # first call) and never the modules, whose flags only mirror JAX's G
+        self.k9_weights = GeneratorWeights.of(self.G) if cfg.use_pallas else None
         # per-batch host-clock seconds of the last sample(): the device
         # window (labels in -> labels back, synchronised) and the decode
         self.timings: list[dict] = []
@@ -109,7 +112,12 @@ class InferenceEngine:
         x = torch.as_tensor(np.asarray(x_labels)).to(self.device).long()
         a = F.one_hot(a, self.b_dim).to(self.compute_dtype)
         x = F.one_hot(x, self.m_dim).to(self.compute_dtype)
-        _, _, node_logits, edge_logits = self.G(a, x)
+        if self.k9_weights is not None:
+            # one-hot adjacencies of molecules are symmetric: K9's precondition
+            node_logits, edge_logits = fused_generator_logits(
+                self.k9_weights, a, x, heads=self.cfg.heads)
+        else:
+            _, _, node_logits, edge_logits = self.G(a, x)
         return (node_logits.argmax(-1).to(torch.int32),
                 edge_logits.argmax(-1).to(torch.int32))
 

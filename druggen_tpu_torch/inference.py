@@ -2,6 +2,8 @@
 
 Same flags as the JAX package's ``inference.py`` plus ``--device``
 (default ``cuda``).  Correction is not ported: pass ``--disable_correction``.
+``--use_pallas`` serves through the whole-generator kernel (K9) instead of
+the modules (``--fused_mlp`` then has no effect, as in JAX).
 
 Example:
     python -m druggen_tpu_torch.inference --submodel DrugGEN \\

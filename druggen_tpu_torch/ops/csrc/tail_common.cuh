@@ -1,5 +1,6 @@
-// The edge-stream tail of one 16-row tile, shared by K1 (fused_mlp.cu) and
-// K7 (fused_block.cu), and the row helpers of K2 and K8:
+// The edge-stream tail of one 16-row tile, shared by K1 (fused_mlp.cu), K7
+// (fused_block.cu) and K9 (fused_generator.cu), and the row helpers of K2
+// and K8:
 //
 //     x   = LN1(s)                                  (f32)
 //     h   = relu(round_T(x) @ W1 + b1)              (f32 accumulate)
@@ -8,6 +9,13 @@
 //
 // with the Pallas kernels' rounding points (druggen_tpu/ops/fused_mlp.py
 // _fwd_kernel; fused_block.py _fwd_kernel's LN4 -> MLP2 -> LN6); eps 1e-5.
+// The rounding policy kRoundResidual (K9's, fused_generator.py _kernel:
+// every product and every add rounded to T) changes the last line to
+//
+//     out = round_T(LN2(round_T(round_T(x) + round_T(m))))
+//
+// and nothing else: h is rounded in both, and K9 hands in LN parameters and
+// biases that are already stream-type values.
 //
 // Widths.  C (the stream width) and H (the MLP hidden) are compile-time
 // constants set by the build (-DKERNEL_C=... -DKERNEL_H=..., default 128 and
@@ -308,10 +316,11 @@ __device__ __forceinline__ void init_bufs(T* xs, int tid) {
 // across the block).  w1 / w2: W1^T [HP][CP] and W2^T [CP][HP] in T, at
 // leading dimensions LD1 / LD2 (in shared or device memory; for the f32
 // twin in device memory).  xs, hs, stage: the Bufs<T> buffers.  Writes the
-// tile's rows r < valid to out + r * C.  Every thread of the block calls it;
+// tile's rows r < valid to out + r * LDO.  kRoundResidual: K9's rounding
+// policy (see the top of this file).  Every thread of the block calls it;
 // it begins and ends with __syncthreads-separated uses of the buffers, so two
 // calls in a row need no barrier between them.
-template <typename T, int LD1, int LD2>
+template <typename T, int LD1, int LD2, bool kRoundResidual = false, int LDO = C>
 __device__ __forceinline__ void tail_tile(float xr[ROWS_PER_WARP][NCH][VEC], int valid,
                                           const LaneParams& p, const T* w1, const T* w2, T* xs,
                                           T* hs, float* stage, T* __restrict__ out) {
@@ -434,12 +443,21 @@ __device__ __forceinline__ void tail_tile(float xr[ROWS_PER_WARP][NCH][VEC], int
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const int c = col_of(ch, lane) + i;
-          v[ch][i] = col_ok(ch, lane) ? xr[j][ch][i] + (stage[r * LDS + c] + p.b2[ch][i]) : 0.0f;
+          if constexpr (kRoundResidual) {
+            v[ch][i] = 0.0f;
+            if (col_ok(ch, lane)) {
+              const float m = to_float(from_float<T>(stage[r * LDS + c] + p.b2[ch][i]));
+              const float x = to_float(from_float<T>(xr[j][ch][i]));
+              v[ch][i] = to_float(from_float<T>(x + m));
+            }
+          } else {
+            v[ch][i] = col_ok(ch, lane) ? xr[j][ch][i] + (stage[r * LDS + c] + p.b2[ch][i]) : 0.0f;
+          }
         }
       layer_norm_row(v, p.g2, p.bl2, lane);
 #pragma unroll
       for (int ch = 0; ch < NCH; ++ch)
-        if (col_ok(ch, lane)) storev(out + size_t(r) * C + col_of(ch, lane), v[ch]);
+        if (col_ok(ch, lane)) storev(out + size_t(r) * LDO + col_of(ch, lane), v[ch]);
     }
   }
   // No barrier needed here: the next tile's first writes (xs, then the stage

@@ -31,6 +31,16 @@ residual; the backward recomputes ``e`` and the softmax from that rounded
 ``_make_proj_op``'s ``custom_vjp``): K5 forward, K6 backward, first-order
 only.  A CPU tensor takes the plain versions in both directions; a CUDA
 tensor launches the kernel or raises.
+
+The v2 op, :func:`edge_modulated_attention` (JAX :187-208), is the same
+chain without the two projections: q, k, v [B, N, H, dk] and e
+[B, N, N, H, dk] in, ``(edge_pre, node_agg)`` out.  Its kernels are K3
+(``csrc/fused_attention_v2.cu``, the Pallas ``_fwd_kernel``) and K4
+(``csrc/fused_attention_v2_bwd.cu``, ``_bwd_kernel``), under
+:class:`EdgeAttention` (JAX ``_make_op``'s ``custom_vjp``).  Rounding
+points: q, k, v and e are widened to f32, everything is f32, and the outputs
+are rounded to the stream dtype.  Its routing rule is JAX's: the kernel at
+``d % 128 == 0`` with the per-graph estimate within 12 MiB (v3's is 10).
 """
 
 from __future__ import annotations
@@ -60,6 +70,14 @@ def uses_kernel(n: int, d: int, dtype) -> bool:
     within 10 MiB; anything else takes the plain composite."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     return d % 128 == 0 and _vmem_estimate_bytes(n, d, itemsize) <= 10 * 2 ** 20
+
+
+def uses_v2_kernel(n: int, d: int, dtype) -> bool:
+    """The JAX routing rule of the v2 op (``edge_modulated_attention``
+    :201-203): K3/K4 at ``d % 128 == 0`` with the per-graph block estimate
+    within 12 MiB; anything else takes :func:`reference_attention`."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return d % 128 == 0 and _vmem_estimate_bytes(n, d, itemsize) <= 12 * 2 ** 20
 
 
 # ---------------------------------------------------------------- plain math
@@ -100,6 +118,40 @@ def _softmax_keys(t):
     # the Pallas kernels' softmax over the keys (axis 2), f32
     ex = torch.exp(t - t.amax(dim=2, keepdim=True))
     return ex / ex.sum(dim=2, keepdim=True)
+
+
+def edge_attention_v2_fwd_reference(q3, k3, v3, e4, heads: int):
+    """Plain PyTorch version of K3 (the Pallas ``_fwd_kernel``): q3, k3, v3
+    [B, N, D], e4 [B, N, N, D] widened to f32; returns ``(edge_pre, node_agg)``
+    rounded to q3's dtype."""
+    f32, dt = torch.float32, q3.dtype
+    inv = 1.0 / math.sqrt(q3.shape[-1] // heads)
+    q, k, v, e = (x.to(f32) for x in (q3, k3, v3, e4))
+    t = (q[:, :, None] * k[:, None]) * inv
+    t = t * (e + 1.0) * e
+    node = (_softmax_keys(t) * v[:, None]).sum(dim=2)
+    return t.to(dt), node.to(dt)
+
+
+def edge_attention_v2_bwd_reference(q3, k3, v3, e4, ge, gn, heads: int):
+    """Plain PyTorch version of K4 (the Pallas ``_bwd_kernel``): recomputes
+    t and the softmax in f32 and returns ``(dq, dk, dv, de)`` rounded to
+    q3's dtype."""
+    f32, dt = torch.float32, q3.dtype
+    inv = 1.0 / math.sqrt(q3.shape[-1] // heads)
+    q, k, v, e, g_e, g_n = (x.to(f32) for x in (q3, k3, v3, e4, ge, gn))
+    base = (q[:, :, None] * k[:, None]) * inv
+    mod = (e + 1.0) * e
+    s = _softmax_keys(base * mod)
+    ds_in = g_n[:, :, None] * v[:, None]
+    dot = (s * ds_in).sum(dim=2, keepdim=True)
+    dt_ = g_e + s * (ds_in - dot)
+    dbase = dt_ * mod
+    de = dt_ * base * (2.0 * e + 1.0)
+    dq = (dbase * k[:, None]).sum(dim=2) * inv
+    dk = (dbase * q[:, :, None]).sum(dim=1) * inv
+    dv = (s * g_n[:, :, None]).sum(dim=1)
+    return dq.to(dt), dk.to(dt), dv.to(dt), de.to(dt)
 
 
 def edge_attention_fwd_reference(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
@@ -190,14 +242,14 @@ def _device_index(t) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _check_cuda_args(name, q3, k3, v3, eraw, f32_params, stream_extra=()):
+def _check_cuda_args(name, q3, k3, v3, eraw, f32_params, stream_extra=(), rule=uses_kernel):
     dt = q3.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} kernel takes bf16 or f32, got {dt}")
     b, n, d = q3.shape
-    if not uses_kernel(n, d, dt):
+    if not rule(n, d, dt):
         raise ValueError(f"{name} kernel: N={n}, D={d}, {dt} is routed to the "
-                         "plain composite by the JAX rule (uses_kernel)")
+                         f"plain composite by the JAX rule ({rule.__name__})")
     for label, t, shape in (("k3", k3, (b, n, d)), ("v3", v3, (b, n, d)),
                             ("eraw", eraw, (b, n, n, d)), *stream_extra):
         if tuple(t.shape) != shape or t.dtype != dt or t.device != q3.device:
@@ -348,3 +400,125 @@ def edge_modulated_attention_proj(q, k, v, edge_raw, we, be, woe, boe):
         return reference_attention_proj(q, k, v, edge_raw, we, be, woe, boe)
     return EdgeAttentionProj.apply(q.reshape(b, n, d), k.reshape(b, n, d),
                                    v.reshape(b, n, d), edge_raw, we, be, woe, boe, h)
+
+
+# ---------------------------------------------------------------- v2: K3, K4
+
+@functools.cache
+def _v2_fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention_v2")
+    for fn in (lib.edge_attention_v2_fwd_bf16, lib.edge_attention_v2_fwd_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _v2_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention_v2_bwd")
+    for fn in (lib.edge_attention_v2_bwd_bf16, lib.edge_attention_v2_bwd_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 11
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def edge_attention_v2_fwd(q3, k3, v3, e4, heads: int):
+    """K3: ``(edge_pre, node_agg)`` like :func:`edge_attention_v2_fwd_reference`.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``edge_attention_v2_fwd.launches``) or raises."""
+    if q3.device.type == "cpu":
+        return edge_attention_v2_fwd_reference(q3, k3, v3, e4, heads)
+    if q3.device.type != "cuda":
+        raise ValueError(f"edge_attention_v2_fwd runs on cpu or cuda, not {q3.device}")
+    _check_cuda_args("edge_attention_v2_fwd", q3, k3, v3, e4, (), rule=uses_v2_kernel)
+    b, n, d = q3.shape
+    q3, k3, v3, e4 = (x.contiguous() for x in (q3, k3, v3, e4))
+    edge_pre, node = torch.empty_like(e4), torch.empty_like(q3)
+    index = _device_index(q3)
+    lib = _v2_fwd_lib()
+    fn = (lib.edge_attention_v2_fwd_bf16 if q3.dtype == torch.bfloat16
+          else lib.edge_attention_v2_fwd_f32)
+    with torch.cuda.device(index):
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), e4.data_ptr(),
+                 edge_pre.data_ptr(), node.data_ptr(), b, n, d,
+                 1.0 / math.sqrt(d // heads), torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"edge_attention_v2_fwd kernel launch failed: CUDA error {err}")
+    edge_attention_v2_fwd.launches += 1
+    return edge_pre, node
+
+
+edge_attention_v2_fwd.launches = 0
+
+
+def edge_attention_v2_bwd(q3, k3, v3, e4, ge, gn, heads: int):
+    """K4: ``(dq, dk, dv, de)`` like :func:`edge_attention_v2_bwd_reference`.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``edge_attention_v2_bwd.launches``) or raises."""
+    if q3.device.type == "cpu":
+        return edge_attention_v2_bwd_reference(q3, k3, v3, e4, ge, gn, heads)
+    if q3.device.type != "cuda":
+        raise ValueError(f"edge_attention_v2_bwd runs on cpu or cuda, not {q3.device}")
+    b, n, d = q3.shape
+    _check_cuda_args("edge_attention_v2_bwd", q3, k3, v3, e4, (),
+                     (("ge", ge, (b, n, n, d)), ("gn", gn, (b, n, d))), rule=uses_v2_kernel)
+    q3, k3, v3, e4, ge, gn = (x.contiguous() for x in (q3, k3, v3, e4, ge, gn))
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
+    de = torch.empty_like(e4)
+    # per query row and channel: the softmax's max, its sum and sum_j s ds_in
+    stats = torch.empty(3, b * n, d, dtype=torch.float32, device=q3.device)
+    index = _device_index(q3)
+    lib = _v2_bwd_lib()
+    fn = (lib.edge_attention_v2_bwd_bf16 if q3.dtype == torch.bfloat16
+          else lib.edge_attention_v2_bwd_f32)
+    with torch.cuda.device(index):
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), e4.data_ptr(), ge.data_ptr(),
+                 gn.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), de.data_ptr(),
+                 stats.data_ptr(), b, n, d, 1.0 / math.sqrt(d // heads),
+                 torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"edge_attention_v2_bwd kernel launch failed: CUDA error {err}")
+    edge_attention_v2_bwd.launches += 1
+    return dq, dk, dv, de
+
+
+edge_attention_v2_bwd.launches = 0
+
+
+class EdgeAttention(torch.autograd.Function):
+    """K3 forward, K4 backward (the JAX ``custom_vjp`` of ``_make_op``).
+
+    ``apply(q3, k3, v3, e4, heads)`` -> ``(edge_pre, node_agg)``.  Saves the
+    four inputs; first-order only: a second derivative through it raises."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, e4, heads):
+        ctx.save_for_backward(q3, k3, v3, e4)
+        ctx.heads = heads
+        return edge_attention_v2_fwd(q3, k3, v3, e4, heads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ge, gn):
+        q3, k3, v3, e4 = ctx.saved_tensors
+        dq, dk, dv, de = edge_attention_v2_bwd(q3, k3, v3, e4, ge.to(q3.dtype),
+                                               gn.to(q3.dtype), ctx.heads)
+        return dq, dk, dv, de, None
+
+
+def edge_modulated_attention(q, k, v, e):
+    """Fused modulate + softmax + aggregate (JAX ``edge_modulated_attention``):
+    q, k, v [B, N, H, dk]; e [B, N, N, H, dk].  Returns ``(edge_pre
+    [B, N, N, D], node_agg [B, N, D])``, :func:`reference_attention`'s
+    outputs: K3/K4 where :func:`uses_v2_kernel` sends the shape,
+    :func:`reference_attention` elsewhere."""
+    b, n, h, dk = q.shape
+    d = h * dk
+    if not uses_v2_kernel(n, d, q.dtype):
+        return reference_attention(q, k, v, e)
+    return EdgeAttention.apply(q.reshape(b, n, d), k.reshape(b, n, d), v.reshape(b, n, d),
+                               e.reshape(b, n, n, d), h)

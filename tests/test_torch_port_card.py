@@ -707,3 +707,201 @@ def test_full_width_fused_block_training_steps():
     for o, b in zip((g_opt, d_opt), before):
         assert (o.flat - b).abs().max().item() > 0
         assert int(o.state.count) == 2
+
+
+# --- K9: the whole generator (use_pallas serving) --------------------------
+# Kernel against its plain version (the same rounding points), compared in
+# f32.  bf16: logits |err| <= 3e-2 + 2^-7 |ref| and mean <= 2e-3 (the f32
+# sums run in another order, so an intermediate may round to the
+# neighbouring bf16 value and carry that through the later layers); a label
+# may differ only where the plain logits' top two lie within twice that
+# bound (random weights give near ties).  f32 1e-4.
+
+K9_CASES = [(128, 384, 1, 45), (128, 384, 2, 13), (64, 128, 1, 45), (64, 128, 2, 13),
+            (256, 768, 1, 45), (256, 768, 2, 13)]
+
+
+def _k9_inputs(c, h, depth, n, seed, b=4, m_dim=8, b_dim=5):
+    from druggen_tpu_torch.models import Generator
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    G = Generator(act="relu", vertexes=n, edges=b_dim, nodes=m_dim, dropout=0.0, dim=c,
+                  depth=depth, heads=8, mlp_ratio=h // c,
+                  generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    lab = np.triu(rng.integers(0, b_dim, (b, n, n)), 1)
+    z_e = np.eye(b_dim, dtype=np.float32)[lab + lab.transpose(0, 2, 1)]
+    z_n = np.eye(m_dim, dtype=np.float32)[rng.integers(0, m_dim, (b, n))]
+    return fg.GeneratorWeights.of(G), torch.from_numpy(z_e).cuda(), torch.from_numpy(z_n).cuda()
+
+
+def _k9_close(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4
+        return
+    bound = 3e-2 + 2 ** -7 * ref.abs()
+    assert bool((err <= bound).all()), err.max().item()
+    assert err.mean().item() <= 2e-3
+    lab_g, lab_r = got.argmax(-1, keepdim=True), ref.argmax(-1, keepdim=True)
+    margin = ref.gather(-1, lab_r) - ref.gather(-1, lab_g)
+    assert bool(((lab_g == lab_r) | (margin <= 2 * bound.gather(-1, lab_r))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,depth,n", K9_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_generator_kernel_matches_plain(c, h, depth, n, dtype):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    gw, z_e, z_n = _k9_inputs(c, h, depth, n, seed=c + depth)
+    z_e, z_n = z_e.to(dtype), z_n.to(dtype)
+    before = fg.fused_generator_logits.launches
+    got = fg.fused_generator_logits(gw, z_e, z_n, heads=8)
+    torch.cuda.synchronize()
+    assert fg.fused_generator_logits.launches == before + 1
+    ref = fg.fused_generator_logits_reference(gw.weights, gw.depth, z_e, z_n, heads=8)
+    for g_, r_ in zip(got, ref):
+        assert g_.dtype == dtype and g_.shape == r_.shape
+        assert torch.isfinite(g_.float()).all()
+        _k9_close(g_, r_, dtype)
+
+
+@pytest.mark.cuda
+def test_generator_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    gw, z_e, z_n = _k9_inputs(128, 384, 1, 13, seed=1)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fg.fused_generator_logits(gw, z_e.half(), z_n.half(), heads=8)
+    with pytest.raises(ValueError, match="z_n"):
+        fg.fused_generator_logits(gw, z_e, z_n[:, :-1], heads=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        gw2, z_e2, z_n2 = _k9_inputs(256, 768, 1, 160, seed=1, b=1)
+        fg.fused_generator_logits(gw2, z_e2, z_n2, heads=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_engine_serves_with_use_pallas_through_k9(tmp_path, dtype):
+    """One 16-graph batch of the trained r2_scale Generator on the card with
+    use_pallas: K9 runs once a forward and no K1; the labels equal K9's
+    plain version's on >= 99.9 % of the entries."""
+    _need_card()
+    import torch.nn.functional as F
+
+    from druggen_tpu_torch.chem.vocab import Vocab
+    from druggen_tpu_torch.config import InferenceConfig
+    from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    smi = tmp_path / "inf.smi"
+    with open(os.path.join(REPO, "data", "chembl_like_150k.smi")) as src:
+        smi.write_text("".join(line for _, line in zip(range(64), src)))
+    with open(os.path.join(REPO, "data", "cache", "vocab",
+                           "vocab_akt1_drugs_chembl_like_150k_45.json")) as f:
+        vocab = Vocab.from_json(f.read())
+    cfg = InferenceConfig(
+        submodel="DrugGEN", inference_model=os.path.join(
+            REPO, "experiments", "r2_scale", "models",
+            "r2_scale_DrugGEN_glr1e-05_dlr1e-05_dim128_depth1_heads8_batch512"
+            "_epoch35_datasetchembl_like_150k45_dropout0.0"),
+        inf_smiles=str(smi), train_smiles=str(smi), train_drug_smiles=str(smi),
+        mol_data_dir=str(tmp_path), compute_dtype=dtype, use_pallas=True,
+        fused_mlp=dtype == "bfloat16", device="cuda")
+    engine = InferenceEngine(cfg, vocab=vocab)
+    x, a = engine.data.x[:16], engine.data.a[:16]
+    before = fg.fused_generator_logits.launches, port.fused_ln_mlp_ln.launches
+    n_k, e_k = engine.forward(a, x)
+    torch.cuda.synchronize()
+    assert (fg.fused_generator_logits.launches, port.fused_ln_mlp_ln.launches) == (
+        before[0] + 1, before[1])
+    tdt = engine.compute_dtype
+    z_e = F.one_hot(torch.as_tensor(a).long().cuda(), engine.b_dim).to(tdt)
+    z_n = F.one_hot(torch.as_tensor(x).long().cuda(), engine.m_dim).to(tdt)
+    ref_n, ref_e = fg.fused_generator_logits_reference(
+        engine.k9_weights.weights, engine.k9_weights.depth, z_e, z_n, heads=cfg.heads)
+    same = ((n_k == ref_n.argmax(-1)).sum() + (e_k == ref_e.argmax(-1)).sum()).item()
+    assert same / (n_k.numel() + e_k.numel()) >= 0.999
+
+
+# --- K3 / K4: the v2 edge attention (no projections) -----------------------
+# Kernel against its plain version on the same inputs, compared in f32, as
+# K5/K6's outputs: bf16 |err| <= 1e-2 + 2^-7 |ref| (sums in another order
+# can round to the neighbouring bf16 value), f32 1e-4 + 1e-5 |ref|.
+
+V2_SHAPES = [(torch.bfloat16, 8, 45, 128), (torch.float32, 8, 45, 128),
+             (torch.bfloat16, 4, 45, 256), (torch.bfloat16, 5, 13, 128),
+             (torch.float32, 3, 50, 128)]
+
+
+def _v2_inputs(b, n, d, dtype, seed):
+    acts, _, cots = _attn_inputs(b, n, d, dtype, seed)
+    return acts, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d", V2_SHAPES)
+def test_attention_v2_fwd_kernel_matches_plain(dtype, b, n, d):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, _ = _v2_inputs(b, n, d, dtype, seed=n * d + 2)
+    before = fa.edge_attention_v2_fwd.launches
+    got = fa.edge_attention_v2_fwd(*acts, 8)
+    torch.cuda.synchronize()
+    assert fa.edge_attention_v2_fwd.launches == before + 1
+    ref = fa.edge_attention_v2_fwd_reference(*acts, 8)
+    for name, g_, r_ in zip(("edge_pre", "node_agg"), got, ref):
+        assert torch.isfinite(g_.float()).all(), name
+        _attn_close(g_, r_, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d", V2_SHAPES)
+def test_attention_v2_bwd_kernel_matches_plain(dtype, b, n, d):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, (ge, gn) = _v2_inputs(b, n, d, dtype, seed=n * d + 3)
+    before = fa.edge_attention_v2_bwd.launches
+    got = fa.edge_attention_v2_bwd(*acts, ge, gn, 8)
+    torch.cuda.synchronize()
+    assert fa.edge_attention_v2_bwd.launches == before + 1
+    ref = fa.edge_attention_v2_bwd_reference(*acts, ge, gn, 8)
+    for name, g_, r_ in zip(("dq", "dk", "dv", "de"), got, ref):
+        assert torch.isfinite(g_.float()).all(), name
+        _attn_close(g_, r_, dtype, name)
+
+
+@pytest.mark.cuda
+def test_attention_v2_bwd_kernel_is_deterministic():
+    """No float atomics: two calls on the same inputs give the same bits."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, (ge, gn) = _v2_inputs(16, 45, 128, torch.bfloat16, seed=11)
+    first = fa.edge_attention_v2_bwd(*acts, ge, gn, 8)
+    second = fa.edge_attention_v2_bwd(*acts, ge, gn, 8)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_edge_modulated_attention_runs_k3_and_k4_first_order_only():
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, _ = _v2_inputs(2, 9, 128, torch.float32, seed=12)
+    leaves = [t.reshape(2, 9, 8, 16).requires_grad_() for t in acts[:3]]
+    leaves.append(acts[3].reshape(2, 9, 9, 8, 16).requires_grad_())
+    before = fa.edge_attention_v2_fwd.launches, fa.edge_attention_v2_bwd.launches
+    ep, na = fa.edge_modulated_attention(*leaves)
+    (gq,) = torch.autograd.grad(ep.square().sum() + na.sum(), leaves[0], create_graph=True)
+    assert (fa.edge_attention_v2_fwd.launches, fa.edge_attention_v2_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(gq.sum(), leaves[3])

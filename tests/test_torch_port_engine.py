@@ -135,8 +135,6 @@ def test_unported_options_raise(served):
         engine.cfg = dataclasses.replace(port_engine.cfg,
                                          disable_correction=False)
         engine.run()
-    with pytest.raises(NotImplementedError, match="use_pallas"):
-        InferenceEngine(dataclasses.replace(port_engine.cfg, use_pallas=True))
 
 
 def test_f32_guard_turns_the_kernel_off(served):

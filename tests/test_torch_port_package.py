@@ -54,6 +54,7 @@ def test_scan_sees_the_whole_package():
     assert "druggen_tpu_torch/ops/fused_mlp.py" in paths
     assert "druggen_tpu_torch/ops/fused_attention.py" in paths
     assert "druggen_tpu_torch/ops/fused_block.py" in paths
+    assert "druggen_tpu_torch/ops/fused_generator.py" in paths
     assert "druggen_tpu_torch/models/layers.py" in paths
     assert "druggen_tpu_torch/infer/engine.py" in paths
     assert "druggen_tpu_torch/train/trainer.py" in paths
