@@ -14,9 +14,10 @@ exits non-zero without printing a result line:
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
-               built for dim 64 and for dim 128 with mlp_ratio 4 (weights
-               read through L2); K5 (``edge_attention_fwd``) and K6 (its
-               backward) at the training shape, at D 256 and on a ragged N,
+               built for dim 64, for dim 128 with mlp_ratio 4 (weights
+               streamed from L2) and for dim 512 (the split path); K5
+               (``edge_attention_fwd``) and K6 (its backward) at the
+               training shape, at D 256 and on a ragged N,
                K6 twice for the same bits; K7 (``fused_block_fwd``, the
                megablock) and K8 (its backward) at the training shape and
                at N 13, D 256, K8 twice for the same bits; K9
@@ -37,8 +38,12 @@ exits non-zero without printing a result line:
                K9 vs its plain version (held), f32 K9 vs the f32 plain
                Generator (held), bf16 K9 vs slice 1's K1 path (printed).
 6. timing   — each kernel, its plain version and an eager yardstick, CUDA
-               events, beside the card's bound (K1, K2, also at 128/512;
-               K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4).
+               events, beside the card's bound (K1, K2, also at 128/512 and
+               on the split path at 512/1536;
+               K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4); K2's
+               three launches one by one (torch.profiler); beside K1 and K2
+               the same products through torch.matmul, a labelled
+               reference (2 for K1, 6 for K2).
 7. profile  — one serving forward under torch.profiler, without and with
                ``use_pallas``: device time by kernel and the card's idle
                share of the forward.
@@ -58,8 +63,12 @@ exits non-zero without printing a result line:
                checkpoint served back.
 9. step agreement — one step from the same state through the kernels and
                through the plain versions, bf16 and f32: losses, every
-               gradient of G and D, and the G edge tails' gradients; then the
-               same with ``use_pallas`` (and the G attention's gradients) and
+               gradient of G and D, and the G edge tails' gradients, against
+               K1/K2's plain versions and against the plain path (the bf16
+               tails on the same rows and cotangent, after a diagnosis that
+               records the tail's input and cotangent in both steps and an
+               f32 one); then the same with ``use_pallas`` (and the G
+               attention's gradients, against K5/K6's plain versions) and
                with ``--fused_block`` (against K7/K8's plain versions).
 10. step profile — one training step under torch.profiler, without and
                with ``use_pallas`` and with ``--fused_block``: device time by
@@ -130,12 +139,18 @@ TOL_GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 MAX_FLIP_ROW_SHARE = 1e-3
 # step agreement, kernels vs plain versions from one state, by relative
 # error of each loss, of each model's whole gradient and of the gradient of
-# the Generator's fused edge tails (ln4, mlp2, ln6) on their own.  The plain
-# bf16 path rounds at other points (bf16 F.linear/F.layer_norm outputs
-# against the kernels' f32 hidden and residual).  On an H100 the whole
-# gradients read 3.1e-3 (D) and 2.5e-3 (G), so bf16 is held at 1e-2; the
-# tails' own gradients, which take the whole rounding difference, read
-# 8.4e-3 and are held at 2.5e-2.  f32 only sums in another order.
+# the Generator's fused edge tails (ln4, mlp2, ln6) on their own, against
+# the same step through the kernels' plain versions (same rounding points)
+# and through the plain path, which rounds at other points (bf16
+# F.linear/F.layer_norm outputs against the kernels' f32 hidden and
+# residual); f32 only sums in another order.  bf16 is held at 1e-2: the whole
+# gradients against the plain path read 3.1e-3 (D) and 2.5e-3 (G) on an
+# H100.  The tails' own gradients are held at 2.5e-2; against the plain path
+# on the same rows and cotangent (phase 9's tail diagnosis; 1.8e-3 on an
+# H100), because the step's own reading follows the cotangent that reaches
+# the tail: ~1e-10 a row, it differs by 9 % between the two bf16 steps and
+# by 13-14 % from the f32 step's, so the step's tail gradients read 8.7e-2
+# from the state the published run reaches (8.4e-3 from an earlier one).
 TOL_STEP = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 TOL_TAIL = {torch.bfloat16: 2.5e-2, torch.float32: 1e-3}
 TAIL_PARAMS = (".ln4.", ".mlp2.", ".ln6.")
@@ -148,8 +163,11 @@ PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # from the build: the published config's and dim 64 with mlp_ratio 3)
 NARROW_DIM, NARROW_HIDDEN, NARROW_ROWS = 64, 192, 200_003
 # dim 128 with mlp_ratio 4: K1/K2's bf16 weights do not fit one SM beside
-# the tile's buffers, so the kernels read them through L2
+# the tile's buffers, so the kernels stream them from L2 through a TMA ring
 WIDE_HIDDEN = 512
+# dim 512 with mlp_ratio 3: C padded to 64 above 256, so the bf16 K1/K2 take
+# their split path (row kernels and wgmma GEMMs through device memory)
+SPLIT_DIM, SPLIT_HIDDEN = 512, 1536
 # K7/K8 at the training widths and at D 256 (mlp_ratio 3)
 BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN = 256, 768
 KERNEL_BUILDS = (
@@ -159,6 +177,8 @@ KERNEL_BUILDS = (
     ("fused_mlp_bwd", {"KERNEL_C": NARROW_DIM, "KERNEL_H": NARROW_HIDDEN}),
     ("fused_mlp", {"KERNEL_C": DIM, "KERNEL_H": WIDE_HIDDEN}),
     ("fused_mlp_bwd", {"KERNEL_C": DIM, "KERNEL_H": WIDE_HIDDEN}),
+    ("fused_mlp", {"KERNEL_C": SPLIT_DIM, "KERNEL_H": SPLIT_HIDDEN}),
+    ("fused_mlp_bwd", {"KERNEL_C": SPLIT_DIM, "KERNEL_H": SPLIT_HIDDEN}),
     ("fused_attention", {}),
     ("fused_attention_bwd", {}),
     ("fused_block", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),
@@ -303,6 +323,54 @@ def tail_bwd_bound(rows: int, dtype, c: int = DIM, h: int = HIDDEN) -> tuple[flo
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+# K2's three launches by kernel name (names no PyTorch kernel has)
+K2_LAUNCHES = {"rows": "tail_bwd_rows", "wgrad": "tail_bwd_wgrad", "reduce": "tail_bwd_reduce"}
+
+
+def launch_split(fn, patterns: dict) -> dict:
+    """Device milliseconds of one call of ``fn`` by kernel, summed over the
+    kernels whose name contains each pattern (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label in patterns}
+    seen = set()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for label, pat in patterns.items():
+                if pat in e.key:
+                    out[label] += e.self_device_time_total / 1e3
+                    seen.add(label)
+    if seen != set(patterns):
+        raise AssertionError(f"no kernel named like {sorted(set(patterns) - seen)} "
+                             f"ran in the profiled call")
+    return out
+
+
+def matmul_products(rows: int, c: int, h: int, gen):
+    """K1's two and K2's six products through torch.matmul in bf16 on
+    random operands of the main shape: a reference time for the products
+    alone, not a computation of K1 or K2."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    x, hh, dm, dh = r(rows, c), r(rows, h), r(rows, c), r(rows, h)
+    w1, w2 = r(c, h), r(h, c)
+
+    def fwd():
+        torch.matmul(x, w1)
+        torch.matmul(hh, w2)
+
+    def bwd():
+        fwd()
+        torch.matmul(dm, w2.t())
+        torch.matmul(dh, w1.t())
+        torch.matmul(x.t(), dh)
+        torch.matmul(hh.t(), dm)
+    return fwd, bwd
 
 
 def bwd_row_ok(dtype):
@@ -761,6 +829,9 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
     from druggen_tpu_torch.config import InferenceConfig, TrainConfig
     from druggen_tpu_torch.data.dataset import BatchIterator
     from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.models import layers
+    from druggen_tpu_torch.models.layers import numerics
+    from druggen_tpu_torch.ops import fused_mlp as fm
     from druggen_tpu_torch.train.optim import AdamW
     from druggen_tpu_torch.train.step import TrainStep
     from druggen_tpu_torch.train.trainer import Trainer
@@ -916,13 +987,28 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         finally:
             fb.fused_block_fwd, fb.fused_block_bwd = saved
 
-    def agreement(tr, pallas: bool, reference: str, x, a, dx, da, block: bool = False):
+    @contextlib.contextmanager
+    def plain_tail():
+        """K1/K2's plain versions in place of the kernels (same rounding
+        points), for the step that holds them in the published step."""
+        saved = fm.fused_ln_mlp_ln, fm.fused_ln_mlp_ln_bwd
+        fm.fused_ln_mlp_ln = fm.fused_ln_mlp_ln_reference
+        fm.fused_ln_mlp_ln_bwd = fm.fused_ln_mlp_ln_bwd_reference
+        try:
+            yield
+        finally:
+            fm.fused_ln_mlp_ln, fm.fused_ln_mlp_ln_bwd = saved
+
+    def agreement(tr, pallas: bool, reference: str, x, a, dx, da, block: bool = False,
+                  tail_same_rows=None):
         """One step from the same state through the kernels and through a
         reference: ``"plain path"`` (no kernel: the eager modules),
-        ``"plain K5/K6"`` or ``"plain K7/K8"`` (the same step with those
-        kernels' plain versions).  ``block``: the kernels' step is
+        ``"plain K1/K2"``, ``"plain K5/K6"`` or ``"plain K7/K8"`` (the same
+        step with those kernels' plain versions).  ``block``: the kernels' step is
         --fused_block's (G and the critic's first-order passes in block
-        mode)."""
+        mode).  ``tail_same_rows``: the bf16 G edge tails' agreement with
+        the plain path on the same rows and cotangent (tail_diagnosis), held
+        in place of the step's own reading, which follows the cotangent."""
         opts = (tr.g_opt, tr.d_opt)
         g_opt = opts[0]
 
@@ -944,7 +1030,8 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                 for o in opts:      # record the gradients each update takes
                     o.step = (lambda g, o=o: (grads.append(o.flat_grads(g)),
                                               AdamW.step(o, g)))
-                kernels = fused or reference in ("plain K5/K6", "plain K7/K8")
+                kernels = fused or reference in ("plain K1/K2", "plain K5/K6",
+                                                       "plain K7/K8")
                 mode = ("block" if block else True) if kernels else False
                 step = TrainStep(tr.G, tr.D, *opts,
                                  lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
@@ -953,7 +1040,8 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                                  fused_critic=mode, g_pallas=kernels and pallas)
                 for fn in counted.values():
                     fn.launches = 0
-                plain = {"plain K5/K6": plain_attention, "plain K7/K8": plain_block}
+                plain = {"plain K1/K2": plain_tail, "plain K5/K6": plain_attention,
+                         "plain K7/K8": plain_block}
                 with contextlib.nullcontext() if fused else (
                         plain.get(reference, contextlib.nullcontext)()):
                     out = step(x, a, dx, da, eps=eps)
@@ -989,16 +1077,138 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                 # versions
                 continue
             tol = TOL_STEP[dtype]
+            if tail_same_rows is not None and dtype == torch.bfloat16:
+                print(f"   G's edge tails held on the same rows and cotangent: "
+                      f"{tail_same_rows:.3e} (the step's {rel_tail:.3e} follows the "
+                      f"cotangent that reaches the tail)", flush=True)
+                rel_tail = tail_same_rows
             if (max(dl, gl, rel_d, rel_g, rel_attn) > tol or rel_tail > TOL_TAIL[dtype]):
                 raise AssertionError(f"step through the kernels disagrees with "
                                      f"the {reference} step ({label}, {dtype}): losses "
                                      f"{dl}, {gl}, gradients D {rel_d}, G {rel_g}, "
                                      f"G's edge tails {rel_tail}, G's attention {rel_attn}")
 
+    def tail_diagnosis(tr, x, a, dx, da) -> float:
+        """The published bf16 step's G edge tail against the plain path's,
+        taken apart.  A bf16 step from the state through the kernels ("k"),
+        one through the plain path ("p") and an f32 step through the kernels
+        ("f") record G's tail input s (ln4's input) and output cotangent
+        dout.  Printed: how far s and dout of each step lie from the others'
+        and how the k-p gap of dout spreads over the rows; the tail's 8
+        gradients on given rows by K2, by the plain path's eager bf16 tail
+        (autograd) and by the f32 function (K2's plain version on f32
+        copies), leaf by leaf; LN2's 1/std over the rows.  Returns the larger
+        relative error of K2 against the plain-path tail on the same rows
+        (the k and the p step's)."""
+        blk = next(m for m in tr.G.modules() if isinstance(m, layers.EncoderBlock))
+        names = ("ln4.weight", "ln4.bias", "fc1.weight", "fc1.bias", "fc2.weight",
+                 "fc2.bias", "ln6.weight", "ln6.bias")
+        leaves = [blk.get_parameter(n.replace("fc", "mlp2.fc")) for n in names]
+        opts = (tr.g_opt, tr.d_opt)
+        seen = {}
+        kernel_bwd = fm.fused_ln_mlp_ln_bwd
+
+        def rows(t):
+            return t.detach().reshape(-1, t.shape[-1]).clone()
+
+        def record(s, *rest):
+            if rest[0].data_ptr() == leaves[0].data_ptr():
+                seen[seen["now"]] = (rows(s), rows(rest[-1]))
+            return kernel_bwd(s, *rest)
+        record.launches = 0   # the wrapper counts its launches on its module name
+
+        def pre_ln4(_, args):
+            seen["s"] = rows(args[0])
+
+        def post_ln6(_, __, out):
+            now = seen["now"]
+            out.register_hook(lambda g: seen.__setitem__(now, (seen["s"], rows(g))))
+        modes = {"k": (torch.bfloat16, True), "p": (torch.bfloat16, False),
+                 "f": (torch.float32, True)}
+        for tag, (dtype, fused) in modes.items():
+            snap = snapshot(opts)
+            eps_gen = torch.Generator(device="cuda").manual_seed(SEED)
+            eps = (torch.rand((TRAIN_BATCH, 1, 1), generator=eps_gen, device="cuda",
+                              dtype=dtype),
+                   torch.rand((TRAIN_BATCH, 1, 1, 1), generator=eps_gen, device="cuda",
+                              dtype=dtype))
+            step = TrainStep(tr.G, tr.D, *opts, lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
+                             b_dim=tr.b_dim, submodel=cfg.submodel, compute_dtype=dtype,
+                             g_fused=fused, fused_critic=fused)
+            hooks = [] if fused else [blk.ln4.register_forward_pre_hook(pre_ln4),
+                                      blk.ln6.register_forward_hook(post_ln6)]
+            seen["now"] = tag
+            fm.fused_ln_mlp_ln_bwd = record
+            try:
+                step(x, a, dx, da, eps=eps)
+            finally:
+                fm.fused_ln_mlp_ln_bwd = kernel_bwd
+                for hk in hooks:
+                    hk.remove()
+                restore(opts, snap)
+        (s_k, d_k), (s_p, d_p) = seen["k"], seen["p"]
+        w = [p.detach() for p in leaves]
+        tp = (w[0], w[1], w[2].t(), w[3], w[4].t(), w[5], w[6], w[7])
+
+        def leaf_layout(g):   # K2's dw1 [C, H] and dw2 [H, C] as the leaves
+            return [g[0], g[1], g[2].t(), g[3], g[4].t(), g[5], g[6], g[7]]
+
+        def kernel(s, d):
+            return leaf_layout(fm.fused_ln_mlp_ln_bwd(s, *tp, d)[1:])
+
+        def eager(s, d):
+            with numerics(blk, dtype=torch.bfloat16):
+                y2 = blk.ln4(s)
+                out = blk.ln6(y2 + blk.mlp2(y2))
+            return list(torch.autograd.grad(out, leaves, d))
+
+        def exact(s, d):
+            return leaf_layout(fm.fused_ln_mlp_ln_bwd_reference(s.float(), *tp, d.float())[1:])
+
+        def cat(g):
+            return torch.cat([v.float().flatten() for v in g])
+
+        def gap(i, m1, m2):
+            return rel_err(seen[m1][i].float(), seen[m2][i].float())
+        share = (d_k.float() - d_p.float()).square().sum(-1).sort(descending=True).values
+        print(f"   G's edge tail from the state of phase 9 ({s_k.shape[0]:,} rows; bf16 "
+              f"steps through the kernels k and the plain path p, an f32 step through the "
+              f"kernels f): s rel. gap k-p {gap(0, 'k', 'p'):.3e}, k-f {gap(0, 'k', 'f'):.3e}, "
+              f"p-f {gap(0, 'p', 'f'):.3e}; dout rel. gap k-p {gap(1, 'k', 'p'):.3e}, k-f "
+              f"{gap(1, 'k', 'f'):.3e}, p-f {gap(1, 'p', 'f'):.3e}; |dout| a row, median "
+              f"{d_k.float().norm(dim=-1).median().item():.3e}; share of the k-p dout gap in "
+              f"its largest rows: " + ", ".join(
+                  f"{k:,} {share[:k].sum().item() / share.sum().item():.3f}"
+                  for k in (10, 100, 1_000, 10_000)), flush=True)
+        print(f"   tail gradients of the k step vs the p step, each on its own rows: K2 "
+              f"vs plain-path tail {rel_err(cat(kernel(s_k, d_k)), cat(eager(s_p, d_p))):.3e}",
+              flush=True)
+        same_rows = []
+        for tag, (s, d) in (("k step's", (s_k, d_k)), ("p step's", (s_p, d_p))):
+            gk, ge, g32 = kernel(s, d), eager(s, d), exact(s, d)
+            same_rows.append(rel_err(cat(gk), cat(ge)))
+            print(f"   on the {tag} rows: K2 vs plain-path tail {same_rows[-1]:.3e}; vs the "
+                  f"f32 function: K2 {rel_err(cat(gk), cat(g32)):.3e}, plain-path tail "
+                  f"{rel_err(cat(ge), cat(g32)):.3e}; by leaf (|g|; K2 vs plain; K2, plain vs "
+                  f"f32): " + "; ".join(
+                      f"{n} {g32[i].norm().item():.2e}: {rel_err(gk[i], ge[i]):.1e}, "
+                      f"{rel_err(gk[i], g32[i]):.1e}, {rel_err(ge[i].float(), g32[i]):.1e}"
+                      for i, n in enumerate(names)), flush=True)
+        sf = s_k.float()   # LN2's 1/std over the rows, from the f32 function
+        x1 = F.layer_norm(sf, (sf.shape[-1],), tp[0], tp[1], 1e-5)
+        z = x1 + torch.relu(x1 @ tp[2] + tp[3]) @ tp[4] + tp[5]
+        rstd2 = torch.rsqrt(z.var(-1, unbiased=False) + 1e-5)
+        print(f"   LN2's 1/std over the rows: max {rstd2.max().item():.2f}, median "
+              f"{rstd2.median().item():.2f}; rows above 10 {int((rstd2 > 10).sum()):,}",
+              flush=True)
+        return max(same_rows)
+
     with phase("9 step agreement"):
         x, a = next(iter(BatchIterator(trainer.data, TRAIN_BATCH, seed=SEED)))
         dx, da = next(iter(BatchIterator(trainer.drug_data, TRAIN_BATCH, seed=SEED)))
-        agreement(trainer, False, "plain path", x, a, dx, da)
+        agreement(trainer, False, "plain K1/K2", x, a, dx, da)
+        same_rows = tail_diagnosis(trainer, x, a, dx, da)
+        agreement(trainer, False, "plain path", x, a, dx, da, tail_same_rows=same_rows)
         agreement(trainer_p, True, "plain K5/K6", x, a, dx, da)
         agreement(trainer_p, True, "plain path", x, a, dx, da)
         agreement(trainer_b, False, "plain K7/K8", x, a, dx, da, block=True)
@@ -1018,13 +1228,14 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                    and e.self_device_time_total > 0]
         busy = sum(k[1] for k in kernels)
 
-        def share(prefixes):
-            return sum(k[1] for k in kernels if any(
-                k[0].startswith(f"void (anonymous namespace)::{p}") for p in prefixes))
+        def share(names):
+            # kernels of the port live in anonymous (and nested) namespaces
+            return sum(k[1] for k in kernels if any(f"::{p}" in k[0] for p in names))
 
-        ms = {"K1": sum(k[1] for k in kernels if "fused_ln_mlp_ln_fwd_kernel" in k[0]),
-              # K2's three launches (PyTorch has a reduce_kernel of its own)
-              "K2": share(("rows_kernel<", "wgrad_kernel<", "reduce_kernel(")),
+        ms = {"K1": share(("tail_fwd_",)),
+              # K2's three launches, and each on its own
+              "K2": share(tuple(K2_LAUNCHES.values())),
+              **{f"K2 {k}": share((v,)) for k, v in K2_LAUNCHES.items()},
               "K5": share(("attn_fwd_kernel<",)),
               "K6": share(("attn_bwd_",)),
               "K7": share(("block_fwd_kernel<",)),
@@ -1076,6 +1287,8 @@ def main() -> int:
         fused_ln_mlp_ln_bwd,
         fused_ln_mlp_ln_bwd_reference,
         fused_ln_mlp_ln_reference,
+        launch_plan,
+        num_sms,
         witness_kink_flips,
     )
 
@@ -1096,18 +1309,39 @@ def main() -> int:
             print(f"   {src}.cu {defines}: {b.seconds:.2f} s"
                   f"{' (cached)' if b.cached else ''}")
             for line in b.log.splitlines():
-                if "registers" in line or "Compiling entry" in line:
+                if "registers" in line or "Compiling entry" in line or "spill" in line:
                     print(f"   {line.strip()}")
-        for c, h in ((DIM, HIDDEN), (NARROW_DIM, NARROW_HIDDEN), (DIM, WIDE_HIDDEN)):
+        for c, h in ((DIM, HIDDEN), (NARROW_DIM, NARROW_HIDDEN), (DIM, WIDE_HIDDEN),
+                     (SPLIT_DIM, SPLIT_HIDDEN)):
             lib, blib = _kernel_lib(c, h), _bwd_lib(c, h)
-            for bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
-                sizes = (lib.fused_ln_mlp_ln_fwd_smem_bytes(bf16),
-                         blib.fused_ln_mlp_ln_bwd_smem_bytes(bf16))
-                staged = (lib.fused_ln_mlp_ln_fwd_stages_weights(bf16),
-                          blib.fused_ln_mlp_ln_bwd_stages_weights(bf16))
-                print(f"   fused_mlp C {c} H {h} {dtype}: dynamic shared memory "
-                      f"K1 {sizes[0]} B, K2 rows pass {sizes[1]} B a block; weights "
-                      f"{'staged' if all(staged) else 'read through L2'}")
+            plan = launch_plan(c, h, ROWS, num_sms(0))
+            sizes = (lib.fused_ln_mlp_ln_fwd_smem_bytes(1),
+                     blib.fused_ln_mlp_ln_bwd_smem_bytes(1),
+                     blib.fused_ln_mlp_ln_bwd_wgrad_smem_bytes(1))
+            staged = (lib.fused_ln_mlp_ln_fwd_stages_weights(1),
+                      blib.fused_ln_mlp_ln_bwd_stages_weights(1))
+            if (sizes != (plan.fwd_smem, plan.rows_smem, plan.wgrad_smem)
+                    or staged != (plan.fwd_staged, plan.rows_staged)):
+                raise AssertionError(f"launch_plan({c}, {h}) disagrees with the library: "
+                                     f"{sizes} {staged} vs {plan}")
+            if plan.split != bool(lib.fused_ln_mlp_ln_split()):
+                raise AssertionError(f"launch_plan({c}, {h}) and the library take "
+                                     f"different paths")
+            print(f"   fused_mlp C {c} H {h} bf16 (launch plan = library): dynamic shared "
+                  f"memory K1 {sizes[0]} B, K2 rows pass {sizes[1]} B, wgrad "
+                  f"{sizes[2]} B a block; "
+                  + ("split path (row kernels and wgmma GEMMs; the largest GEMM block "
+                     "above); " if plan.split else
+                     f"weights {'staged' if all(staged) else 'streamed through a TMA ring'}; ")
+                  + 
+                  f"{plan.warpgroups} warpgroups of {plan.tile_rows}-row tiles, grid "
+                  f"{plan.grid}; wgrad {plan.wgrad_warpgroups} warpgroups of 64 x "
+                  f"{plan.wgrad_tile_n}, grid {plan.wgrad_grid}; K2 scratch "
+                  f"{plan.scratch_bytes / 1e9:.3f} GB at {ROWS:,} rows")
+            print(f"   fused_mlp C {c} H {h} f32: dynamic shared memory K1 "
+                  f"{lib.fused_ln_mlp_ln_fwd_smem_bytes(0)} B, K2 rows pass "
+                  f"{blib.fused_ln_mlp_ln_bwd_smem_bytes(0)} B a block; weights read "
+                  f"through L2")
         alib, ablib = fa._fwd_lib(), fa._bwd_lib()
         print(f"   fused_attention dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
               f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
@@ -1168,7 +1402,7 @@ def main() -> int:
                          NARROW_ROWS, dtype, gen)
             check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
                              witness_kink_flips, narrow, NARROW_ROWS, dtype, gen)
-        # K1/K2 at dim 128 with mlp_ratio 4: the weights read through L2
+        # K1/K2 at dim 128 with mlp_ratio 4: the weights streamed from L2
         wide = tail_params(gen, "cuda", DIM, WIDE_HIDDEN)
         k1w = check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, wide, ROWS,
                            torch.bfloat16, gen, rtol=TOL_BF16_WIDE_RTOL)
@@ -1179,6 +1413,12 @@ def main() -> int:
                          dtype, gen, rtol=TOL_BF16_WIDE_RTOL)
             check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
                              witness_kink_flips, wide, NARROW_ROWS, dtype, gen)
+        # K1/K2 at dim 512: the split path
+        split_p = tail_params(gen, "cuda", SPLIT_DIM, SPLIT_HIDDEN)
+        k1x = check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, split_p, NARROW_ROWS,
+                           torch.bfloat16, gen, rtol=TOL_BF16_WIDE_RTOL)
+        k2x = check_bwd_kernel(fused_ln_mlp_ln_bwd, fused_ln_mlp_ln_bwd_reference,
+                               witness_kink_flips, split_p, NARROW_ROWS, torch.bfloat16, gen)
         torch.cuda.empty_cache()
         attn_checks = {}
         for b, n, d in ATTN_SHAPES:
@@ -1445,11 +1685,20 @@ def main() -> int:
         kb_ms = (kb_a + kb_b) / 2
         del out_, x_, leaves
         bound_b_ms, bound_b_by = tail_bwd_bound(ROWS, torch.bfloat16)
+        k2_split = launch_split(kernel_bwd, K2_LAUNCHES)
         print(f"   fused_ln_mlp_ln_bwd bf16 rows {ROWS:,} on {name} ({smi_line}):")
         print(f"   kernel {kb_ms:.4f} ms (runs {kb_a:.4f}, {kb_b:.4f}); plain "
               f"{pb_ms:.4f} ms; eager autograd backward of the composite "
               f"{cb_ms:.4f} ms; bound {bound_b_ms:.4f} ms ({bound_b_by}); "
               f"kernel at {100 * bound_b_ms / kb_ms:.1f}% of the bound", flush=True)
+        print("   K2 by launch (torch.profiler, one call): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in k2_split.items()), flush=True)
+        # a reference, not library_ms: the products alone through torch.matmul
+        mm_fwd, mm_bwd = matmul_products(ROWS, DIM, HIDDEN, gen)
+        mm1_ms, mm2_ms = cuda_ms(mm_fwd, 20), cuda_ms(mm_bwd, 10)
+        del mm_fwd, mm_bwd
+        print(f"   reference: K1's 2 products through torch.matmul {mm1_ms:.4f} ms; "
+              f"K2's 6 products {mm2_ms:.4f} ms (bf16, the same shapes)", flush=True)
         del s, dout
         torch.cuda.empty_cache()
 
@@ -1518,7 +1767,7 @@ def main() -> int:
         del acts, aparams, ge, gn, t_res, cleaves, c_out
         torch.cuda.empty_cache()
 
-        # K1 / K2 at dim 128 with mlp_ratio 4 (weights read through L2), bf16
+        # K1 / K2 at dim 128 with mlp_ratio 4 (weights streamed from L2), bf16
         s = torch.randn(ROWS, DIM, generator=gen, device="cuda").to(torch.bfloat16)
         dout = torch.randn(ROWS, DIM, generator=gen, device="cuda").to(torch.bfloat16)
         kw_a = cuda_ms(lambda: fused_ln_mlp_ln(s, *wide), 20)
@@ -1531,10 +1780,32 @@ def main() -> int:
         boundw, byw = tail_bound(ROWS, torch.bfloat16, DIM, WIDE_HIDDEN)
         boundbw, bybw = tail_bwd_bound(ROWS, torch.bfloat16, DIM, WIDE_HIDDEN)
         print(f"   fused_ln_mlp_ln (K1) and its backward (K2) bf16, C {DIM} H {WIDE_HIDDEN} "
-              f"(weights read through L2), rows {ROWS:,} on {name} ({smi_line}):")
+              f"(weights streamed from L2), rows {ROWS:,} on {name} ({smi_line}):")
         print(f"   K1 {kw_ms:.4f} ms (runs {kw_a:.4f}, {kw_b:.4f}); plain {pw_ms:.4f} ms; "
               f"bound {boundw:.4f} ms ({byw}); K2 {kbw_ms:.4f} ms (runs {kbw_a:.4f}, "
               f"{kbw_b:.4f}); plain {pbw_ms:.4f} ms; bound {boundbw:.4f} ms ({bybw})",
+              flush=True)
+        del s, dout
+        torch.cuda.empty_cache()
+
+        # K1 / K2 at dim 512 (the split path), bf16
+        s = torch.randn(NARROW_ROWS, SPLIT_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn(NARROW_ROWS, SPLIT_DIM, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        kx_a = cuda_ms(lambda: fused_ln_mlp_ln(s, *split_p), 10)
+        px_ms = cuda_ms(lambda: fused_ln_mlp_ln_reference(s, *split_p), 3, warmup=1)
+        kx_b = cuda_ms(lambda: fused_ln_mlp_ln(s, *split_p), 10)
+        kbx_a = cuda_ms(lambda: fused_ln_mlp_ln_bwd(s, *split_p, dout), 5)
+        pbx_ms = cuda_ms(lambda: fused_ln_mlp_ln_bwd_reference(s, *split_p, dout), 3, warmup=1)
+        kbx_b = cuda_ms(lambda: fused_ln_mlp_ln_bwd(s, *split_p, dout), 5)
+        kx_ms, kbx_ms = (kx_a + kx_b) / 2, (kbx_a + kbx_b) / 2
+        boundx, byx = tail_bound(NARROW_ROWS, torch.bfloat16, SPLIT_DIM, SPLIT_HIDDEN)
+        boundbx, bybx = tail_bwd_bound(NARROW_ROWS, torch.bfloat16, SPLIT_DIM, SPLIT_HIDDEN)
+        print(f"   fused_ln_mlp_ln (K1) and its backward (K2) bf16, C {SPLIT_DIM} H "
+              f"{SPLIT_HIDDEN} (the split path), rows {NARROW_ROWS:,} on {name} ({smi_line}):")
+        print(f"   K1 {kx_ms:.4f} ms (runs {kx_a:.4f}, {kx_b:.4f}); plain {px_ms:.4f} ms; "
+              f"bound {boundx:.4f} ms ({byx}); K2 {kbx_ms:.4f} ms (runs {kbx_a:.4f}, "
+              f"{kbx_b:.4f}); plain {pbx_ms:.4f} ms; bound {boundbx:.4f} ms ({bybx})",
               flush=True)
         del s, dout
         torch.cuda.empty_cache()
@@ -1696,8 +1967,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "matmul_reference_ms": mm1_ms,
         "at_128_512": {"max_abs_err": k1w["max_abs_err"], "ms": kw_ms, "plain_ms": pw_ms,
                        "bound_ms": boundw, "bound_by": byw},
+        "at_512_1536_split": {"max_abs_err": k1x["max_abs_err"], "ms": kx_ms,
+                              "plain_ms": px_ms, "bound_ms": boundx, "bound_by": byx},
     }, {
         "name": "fused_ln_mlp_ln_bwd",
         "route": "cuda",
@@ -1715,8 +1989,12 @@ def main() -> int:
         "bound_by": bound_b_by,
         "library_ms": None,
         "eager_autograd_ms": cb_ms,
+        "by_launch_ms": k2_split,
+        "matmul_reference_ms": mm2_ms,
         "at_128_512": {"max_abs_err": k2w["max_abs_err"], "ms": kbw_ms, "plain_ms": pbw_ms,
                        "bound_ms": boundbw, "bound_by": bybw},
+        "at_512_1536_split": {"max_abs_err": k2x["max_abs_err"], "ms": kbx_ms,
+                              "plain_ms": pbx_ms, "bound_ms": boundbx, "bound_by": bybx},
     }, {
         "name": "edge_attention_fwd",
         "route": "cuda",

@@ -1,66 +1,83 @@
 // Fused LN -> MLP -> residual -> LN row kernel (the edge-stream tail), forward.
 //
-// Replaces the TPU kernel druggen_tpu/ops/fused_mlp.py::_fwd_kernel.  Each
-// row of the [rows, C] edge stream becomes
+// Replaces the TPU kernel druggen_tpu/ops/fused_mlp.py::_fwd_kernel
+// (_fwd_pallas).  Each row of the [rows, C] edge stream becomes
 //
 //     x   = LN1(s)                                  (f32)
 //     h   = relu(round_T(x) @ W1 + b1)              (f32 accumulate)
 //     m   = round_T(h) @ W2 + b2                    (f32 accumulate)
 //     out = round_T(LN2(x + m))                     (residual on the f32 x)
 //
-// with the same rounding points as the Pallas kernel; eps 1e-5.  The tile
-// routine is tailk::tail_tile (tail_common.cuh), which K7 shares.
+// with the same rounding points as the Pallas kernel; eps 1e-5.
 //
 // What bounds it on an H100 SXM: at the serving shape (512 graphs of 45
 // atoms, rows = 1,036,800, C = 128, H = 384) the kernel must read s once and
 // write out once, 0.531 GB, i.e. 0.158 ms at 3.35 TB/s; its two products are
 // 2 * 2 * rows * C * H = 203.9 GFLOP, i.e. 0.206 ms at 989 TFLOP/s in bf16.
-// So it is bound by the tensor cores' operations, not by memory.
+// So the tensor cores' operations bound it.
 //
-// What the design does about it: the 3C-wide hidden never leaves the chip
-// (it lives in shared memory, 16 rows at a time), so device memory sees only
-// s and out.  In bf16 the products run on the tensor cores (WMMA, bf16 in,
-// f32 accumulate).  Blocks are persistent (one per SM in bf16) and walk over
-// row tiles; each warp loads its rows of the next tile while the current one
-// is multiplied.  Where both bf16 weights fit one SM's 227 KB beside the
-// tile's buffers (Smem<bf16>::kStage: 230,144 B at 128/384, 70,144 B at
-// 64/192) the block stages them once and reads every fragment from shared
-// memory; at a wider width (128/512: 264,448 B; 256/768) the fragments are
-// read from device memory, where the weights stay resident in L2, so every
-// width runs.  The f32 twin keeps the weights in L2 and multiplies on the
-// CUDA cores.  wgmma, TMA and a pipelined producer warp are later work.
+// bf16: a Hopper kernel (tail_hopper.cuh has the plan and the layouts).  A
+// persistent block per SM stages W1^T and W2^T once in wgmma's swizzled
+// layout; each consumer warpgroup owns 64-row tiles that TMA brings into its
+// own buffer, one tile ahead.  Per tile:
+//   1. s is read into registers in wgmma's accumulator layout (mode A: kept
+//      as packed bf16 pairs, and the buffer is refilled with the next tile at
+//      once); LN1 in f32 (rows spread over a quad of lanes); round(x) becomes
+//      fc1's A operand in registers (mode B, C > 128: in shared memory).
+//   2. The hidden runs in chunks of 64: acc1 = x W1[:, j] (wgmma), + b1,
+//      relu, rounded to bf16 in registers as the A operand of acc2 += h_j
+//      W2[j, :] (wgmma).  h never touches shared memory.
+//   3. The epilogue rebuilds the f32 LN1 output from s and the row
+//      statistics (the residual adds the f32 x, not its bf16 copy), adds
+//      acc2 + b2, applies LN2 and stores bf16.
+// Shared memory at 128/384, mode A: W1^T + W2^T 196,608 B, two s buffers
+// 2 x 16,384 B, two mbarriers 16 B, 1,024 B of alignment slack: 230,416 B
+// of 232,448.  Registers a consumer thread (mode A, C = 128): acc2 64, acc1
+// 32, the x operand 32, s 32, the h operand 16.  Where the weights do not
+// fit (128/512, 256/768), each warpgroup streams the chunks' rows of W1^T
+// and W2^T from L2 through a TMA ring of its own (tail_hopper.cuh).
 //
-// Ragged last tile: rows past the end are masked (zeros in, nothing stored).
+// Widths the single-pass kernel does not take (C not a multiple of 8, or C
+// padded to 64 above 256) run the split path of tail_split.cuh: LN1, two
+// wgmma GEMMs and LN2 as four launches that pass x, h and the f32 residual
+// sum through device memory, with the same rounding points.
+//
+// f32 twin (off the training path): 16-row tiles on the CUDA cores through
+// tailk::tail_tile (tail_common.cuh, shared with K7 and K9), the weights read
+// through L2.
+//
+// Ragged last tile: TMA reads zeros past the end of the rows and nothing is
+// stored there.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -DKERNEL_C=128 -DKERNEL_H=384 -o libfused_mlp.so fused_mlp.cu
 // Plain C interface for ctypes; no PyTorch headers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "tail_common.cuh"
+#include "tail_hopper.cuh"
+#if !TAIL_FUSED
+#include "tail_split.cuh"
+#endif
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// f32 twin
+// ---------------------------------------------------------------------------
+namespace f32 {
 using namespace tailk;
 
-template <typename T>
-struct Smem {
-  static constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  // stage both weights when they fit beside the tile's buffers
-  static constexpr bool kStage = kTensorCores && STAGED_W + Bufs<T>::total <= SMEM_MAX;
-  static constexpr size_t w = kStage ? STAGED_W : 0;
-  static constexpr size_t total = w + Bufs<T>::total;
-};
+constexpr size_t SMEM = Bufs<float>::total;
 
 // The warp's rows of row tile `tile` (zeros past the end of the rows and of
 // the row).
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ s, long long tile, int warp,
+__device__ __forceinline__ void load_rows(const float* __restrict__ s, long long tile, int warp,
                                           int lane, long long rows,
                                           float v[ROWS_PER_WARP][NCH][VEC]) {
 #pragma unroll
@@ -75,37 +92,24 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ s, long long til
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1,
-                           const float* __restrict__ bl1, const T* __restrict__ w1t,
-                           const float* __restrict__ b1, const T* __restrict__ w2t,
-                           const float* __restrict__ b2, const float* __restrict__ g2,
-                           const float* __restrict__ bl2, T* __restrict__ out, long long rows) {
-  using S = Smem<T>;
+tail_fwd_f32(const float* __restrict__ s, const float* __restrict__ g1, const float* __restrict__ bl1,
+           const float* __restrict__ w1t, const float* __restrict__ b1,
+           const float* __restrict__ w2t, const float* __restrict__ b2,
+           const float* __restrict__ g2, const float* __restrict__ bl2, float* __restrict__ out,
+           long long rows) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem + S::w);
-  T* hs = reinterpret_cast<T*>(smem + S::w + Bufs<T>::x);
-  float* stage = reinterpret_cast<float*>(smem + S::w + Bufs<T>::x + Bufs<T>::h);
-
+  float* xs = reinterpret_cast<float*>(smem);
+  float* hs = reinterpret_cast<float*>(smem + Bufs<float>::x);
+  float* stage = reinterpret_cast<float*>(smem + Bufs<float>::x + Bufs<float>::h);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-
-  // The weights: staged once per block, or read where they are (L2).
-  T* w1s = reinterpret_cast<T*>(smem);
-  T* w2s = reinterpret_cast<T*>(smem + size_t(HP) * LDW1 * sizeof(T));
-  if constexpr (S::kStage) {
-    stage_rows<HP, CP, LDW1>(w1s, w1t, tid);
-    stage_rows<CP, HP, LDW2>(w2s, w2t, tid);
-  }
   init_bufs(xs, tid);
   LaneParams p;
   load_lane_params(p, g1, bl1, b1, b2, g2, bl2, lane);
-
   const long long n_tiles = (rows + BM - 1) / BM;
-  // This warp's rows of the next tile, loaded one tile ahead so that the
-  // device-memory latency hides behind the current tile's products.
+  // This warp's rows of the next tile, loaded one tile ahead.
   float sr[ROWS_PER_WARP][NCH][VEC];
   load_rows(s, blockIdx.x, warp, lane, rows, sr);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -120,66 +124,365 @@ fused_ln_mlp_ln_fwd_kernel(const T* __restrict__ s, const float* __restrict__ g1
     load_rows(s, tile + gridDim.x, warp, lane, rows, sr);
     const long long left = rows - row0;
     const int valid = left < BM ? int(left) : BM;
-    if constexpr (S::kStage)
-      tail_tile<T, LDW1, LDW2>(xr, valid, p, w1s, w2s, xs, hs, stage, out + row0 * C);
-    else
-      tail_tile<T, CP, HP>(xr, valid, p, w1t, w2t, xs, hs, stage, out + row0 * C);
+    tail_tile<float, CP, HP>(xr, valid, p, w1t, w2t, xs, hs, stage, out + row0 * C);
   }
 }
+}  // namespace f32
 
-template <typename T>
-int launch(const void* s, const void* g1, const void* bl1, const void* w1t, const void* b1,
-           const void* w2t, const void* b2, const void* g2, const void* bl2, void* out,
-           long long rows, int c, int h, int num_sms, void* stream) {
-  if (c != C || h != H || num_sms <= 0 || rows < 0) return int(cudaErrorInvalidValue);
-  if (rows == 0) return int(cudaSuccess);
-  constexpr size_t smem = Smem<T>::total;
-  cudaError_t err = cudaFuncSetAttribute(fused_ln_mlp_ln_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const long long n_tiles = (rows + BM - 1) / BM;
-  // bf16 with staged weights: one persistent block per SM; otherwise a few
-  // smaller blocks per SM.
-  const long long per_sm = Smem<T>::kStage ? 1 : (Smem<T>::kTensorCores ? 2 : 4);
-  const long long grid = n_tiles < num_sms * per_sm ? n_tiles : num_sms * per_sm;
-  fused_ln_mlp_ln_fwd_kernel<T><<<unsigned(grid), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(s), static_cast<const float*>(g1), static_cast<const float*>(bl1),
-      static_cast<const T*>(w1t), static_cast<const float*>(b1), static_cast<const T*>(w2t),
-      static_cast<const float*>(b2), static_cast<const float*>(g2), static_cast<const float*>(bl2),
-      static_cast<T*>(out), rows);
-  return int(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// bf16 on Hopper
+// ---------------------------------------------------------------------------
+#if TAIL_FUSED
+namespace k1 {
+using namespace hop;
+using bf16 = __nv_bfloat16;
+
+struct Params {
+  const float* g1;
+  const float* bl1;
+  const float* b1;  // padded to HP
+  const float* b2;
+  const float* g2;
+  const float* bl2;
+  const bf16* w1t;  // W1^T [HP][CP]
+  const bf16* w2t;  // W2^T [CP][HP]
+  bf16* out;
+  long long rows;
+};
+
+// Shared memory, bytes from the aligned base: [staged weights] [per
+// warpgroup: s tile (mode B: and the x operand)] [per warpgroup: weight
+// ring] [mbarriers].
+constexpr size_t STAGED = 2 * W_BYTES;
+constexpr size_t BUFS = kModeA ? TILE_BYTES : 2 * TILE_BYTES;
+constexpr bool kStage = STAGED + NWG * BUFS + 256 + ALIGN_SLACK <= SMEM_MAX;
+constexpr int RING = kStage ? 0 : ring_stages(NWG * BUFS);
+constexpr int RINGS = RING > 0 ? RING : 1;  // RING as a divisor (unused when staged)
+constexpr size_t OFF_BUFS = kStage ? STAGED : 0;
+constexpr size_t OFF_RING = OFF_BUFS + NWG * BUFS;
+constexpr size_t OFF_BAR = OFF_RING + size_t(NWG) * RING * CHUNK_BYTES;
+constexpr int NBAR = NWG * (1 + RING);
+constexpr size_t SMEM = OFF_BAR + size_t(NBAR) * 8 + ALIGN_SLACK;
+static_assert(kStage || RING >= 1, "no room for the weight ring");
+static_assert(SMEM <= SMEM_MAX, "shared memory over the limit");
+
+__global__ void __launch_bounds__(THREADS, 1)
+tail_fwd_wgmma(const __grid_constant__ CUtensorMap s_map, const __grid_constant__ CUtensorMap w1_map,
+           const __grid_constant__ CUtensorMap w2_map, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int wg = threadIdx.x >> 7;
+  const Lane ln(threadIdx.x & 127);
+  const bool leader = ln.t == 0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* full_s = bars + wg;
+  uint64_t* ring_full = bars + NWG + wg * RING;
+  uint8_t* s_buf = smem + OFF_BUFS + wg * BUFS;
+  uint8_t* x_buf = kModeA ? s_buf : s_buf + TILE_BYTES;
+  uint8_t* ring = smem + OFF_RING + size_t(wg) * RING * CHUNK_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBAR; ++i) mbar_init(bars + i, 1);
+    fence_barrier_init();
+  }
+  if constexpr (kStage) {
+    stage_weights(smem, smem + W_BYTES, p.w1t, p.w2t);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  const long long n_tiles = (p.rows + BM - 1) / BM;
+  const long long stride = (long long)gridDim.x * NWG;
+  const long long first = (long long)blockIdx.x * NWG + wg;
+  const long long my_tiles = first < n_tiles ? (n_tiles - 1 - first) / stride + 1 : 0;
+  const long long chunks = my_tiles * NJ;  // ring loads this warpgroup consumes
+  if (leader && my_tiles > 0) {
+    load_tile(s_buf, &s_map, full_s, first);
+    if constexpr (!kStage)
+      for (int n = 0; n < RING && n < chunks; ++n)
+        load_chunk(ring + size_t(n) * CHUNK_BYTES, ring_full + n, &w1_map, &w2_map, n % NJ);
+  }
+
+  uint32_t it = 0;
+  long long n = 0;  // ring position
+  for (long long tile = first; tile < n_tiles; tile += stride, ++it) {
+    mbar_wait(full_s, it & 1);
+    // ---- 1. s, LN1 statistics, the x operand
+    float mu[2], rstd[2];
+    uint32_t sp[JC][2];       // mode A: s as packed bf16 pairs
+    uint32_t xa[CP / 16][4];  // mode A: round(x), the A operand of fc1
+    {
+      float v[4 * JC];
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t raw =
+              *reinterpret_cast<const uint32_t*>(s_buf + tile_off(ln.row(half), j, ln.q));
+          if constexpr (kModeA) sp[j][half] = raw;
+          const float2 f = unpack_bf16(raw);
+          v[4 * j + 2 * half] = f.x;
+          v[4 * j + 2 * half + 1] = f.y;
+        }
+      row_stats(v, ln, mu, rstd);
+      if constexpr (kModeA) {  // the buffer is free: bring the next tile
+        wg_sync(1 + wg);
+        if (leader && tile + stride < n_tiles) load_tile(s_buf, &s_map, full_s, tile + stride);
+      }
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = ln.col(j, e);
+          const float g = c_ok(c) ? __ldg(p.g1 + c) : 0.0f;
+          const float b = c_ok(c) ? __ldg(p.bl1 + c) : 0.0f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            v[4 * j + 2 * half + e] = ln_apply(v[4 * j + 2 * half + e], mu[half], rstd[half], g, b);
+        }
+      if constexpr (kModeA) {
+        to_a_regs(v, xa);
+      } else {
+#pragma unroll
+        for (int j = 0; j < JC; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<uint32_t*>(x_buf + tile_off(ln.row(half), j, ln.q)) =
+                pack_bf16(v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+        fence_proxy_async();
+        wg_sync(1 + wg);
+      }
+    }
+
+    // ---- 2. the hidden in chunks of 64
+    float acc2[CP / 2];
+#pragma unroll
+    for (int i = 0; i < CP / 2; ++i) acc2[i] = 0.0f;
+    for (int j = 0; j < NJ; ++j, ++n) {
+      Chunk ch;
+      if constexpr (kStage) {
+        ch = staged_chunk(smem, smem + W_BYTES, j);
+      } else {
+        mbar_wait(ring_full + n % RINGS, uint32_t(n / RINGS) & 1);
+        ch = ring_chunk(ring + size_t(n % RINGS) * CHUNK_BYTES);
+      }
+      float acc1[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc1[i] = 0.0f;
+      fence_regs(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CP / 16; ++kk) {
+        if constexpr (kModeA)
+          Mma<64>::rs<0>(acc1, xa[kk], b_w1(ch, kk));
+        else
+          Mma<64>::ss<0, 0>(acc1, a_tile(x_buf, kk), b_w1(ch, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float b = __ldg(p.b1 + j * HJ + ln.col(jj, e));
+          acc1[4 * jj + e] = fmaxf(acc1[4 * jj + e] + b, 0.0f);
+          acc1[4 * jj + 2 + e] = fmaxf(acc1[4 * jj + 2 + e] + b, 0.0f);
+        }
+      uint32_t ha[4][4];
+      to_a_regs(acc1, ha);
+      fence_regs(acc2);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Mma<CP>::rs<0>(acc2, ha[kk], b_w2(ch, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc2);
+      if constexpr (!kStage) {  // the stage is free: bring chunk n + RING
+        wg_sync(1 + wg);
+        if (leader && n + RING < chunks)
+          load_chunk(ring + size_t(n % RINGS) * CHUNK_BYTES, ring_full + n % RINGS, &w1_map,
+                     &w2_map, int((n + RING) % NJ));
+      }
+    }
+
+    // ---- 3. out = LN2(x + (m + b2)), x rebuilt in f32 from s
+    {
+      float v[4 * JC];
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = ln.col(j, e);
+          const bool ok = c_ok(c);
+          const float g = ok ? __ldg(p.g1 + c) : 0.0f;
+          const float b = ok ? __ldg(p.bl1 + c) : 0.0f;
+          const float b2 = ok ? __ldg(p.b2 + c) : 0.0f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float sv;
+            if constexpr (kModeA) {
+              const float2 f = unpack_bf16(sp[j][half]);
+              sv = e ? f.y : f.x;
+            } else {
+              const float2 f = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                  s_buf + tile_off(ln.row(half), j, ln.q)));
+              sv = e ? f.y : f.x;
+            }
+            const float x = ln_apply(sv, mu[half], rstd[half], g, b);
+            v[4 * j + 2 * half + e] = ok ? x + (acc2[4 * j + 2 * half + e] + b2) : 0.0f;
+          }
+        }
+      float mu2[2], rstd2[2];
+      row_stats(v, ln, mu2, rstd2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t o[JC];
+#pragma unroll
+        for (int j = 0; j < JC; ++j) {
+          const int c = ln.col(j);
+          const bool ok = c_ok(c);
+          o[j] = pack_bf16(
+              ln_apply(v[4 * j + 2 * half], mu2[half], rstd2[half], ok ? __ldg(p.g2 + c) : 0.0f,
+                       ok ? __ldg(p.bl2 + c) : 0.0f),
+              ln_apply(v[4 * j + 2 * half + 1], mu2[half], rstd2[half],
+                       ok ? __ldg(p.g2 + c + 1) : 0.0f, ok ? __ldg(p.bl2 + c + 1) : 0.0f));
+        }
+        uint4 og[JC / 4];
+        quad_transpose(o, og);  // 16-byte stores
+        const long long row = tile * BM + ln.row(half);
+        if (row < p.rows) {
+#pragma unroll
+          for (int g = 0; g < JC / 4; ++g) {
+            const int c = 8 * (4 * g + ln.q);
+            if (c_ok(c)) *reinterpret_cast<uint4*>(p.out + row * C + c) = og[g];
+          }
+        }
+      }
+    }
+    if constexpr (!kModeA) {  // s and x are done with: bring the next tile
+      wg_sync(1 + wg);
+      if (leader && tile + stride < n_tiles) load_tile(s_buf, &s_map, full_s, tile + stride);
+    }
+  }
 }
+}  // namespace k1
+#endif  // TAIL_FUSED
 
 }  // namespace
 
-// s, out: [rows, C] in the stream type; w1t: W1^T [HP, CP] and w2t: W2^T
-// [CP, HP] in the stream type (nn.Linear layout, zero-padded to multiples of
-// 16); LayerNorm parameters and biases f32.
-// c and h must be the compiled KERNEL_C and KERNEL_H.  Launches on `stream`,
-// does not synchronise, allocates nothing.  Returns the cudaError_t of the
-// launch (0 on success).
+// s, out: [rows, C]; w1t: W1^T and w2t: W2^T in the nn.Linear layout, each
+// zero-padded (bf16: to [HP, CP] / [CP, HP], multiples of 64; f32: to
+// multiples of 16); LayerNorm parameters and biases f32 (bf16: b1 padded to
+// HP).  c and h must be the compiled KERNEL_C and KERNEL_H; grid and
+// smem_bytes come from ops/fused_mlp.py::launch_plan and smem_bytes must
+// equal fused_ln_mlp_ln_fwd_smem_bytes().  Launches on `stream`, does not
+// synchronise, allocates nothing.  Returns the cudaError_t of the launch (0
+// on success; cudaErrorInvalidValue for arguments that do not match).
 extern "C" int fused_ln_mlp_ln_fwd_bf16(const void* s, const void* g1, const void* bl1,
                                         const void* w1t, const void* b1, const void* w2t,
                                         const void* b2, const void* g2, const void* bl2,
-                                        void* out, long long rows, int c, int h, int num_sms,
-                                        void* stream) {
-  return launch<__nv_bfloat16>(s, g1, bl1, w1t, b1, w2t, b2, g2, bl2, out, rows, c, h, num_sms,
-                               stream);
+                                        void* out, long long rows, int c, int h, int grid,
+                                        long long smem_bytes, void* stream) {
+#if TAIL_FUSED
+  using namespace k1;
+  if (c != C || h != H || grid <= 0 || rows < 0 || smem_bytes != (long long)SMEM)
+    return int(cudaErrorInvalidValue);
+  if (rows == 0) return int(cudaSuccess);
+  CUtensorMap s_map, w1_map, w2_map;
+  if (!make_map(&s_map, s, rows, C, BM) || !make_map(&w1_map, w1t, HP, CP, HJ) ||
+      !make_map(&w2_map, w2t, CP, HP, CP))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(tail_fwd_wgmma,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+  if (err != cudaSuccess) return int(err);
+  const Params p{static_cast<const float*>(g1), static_cast<const float*>(bl1),
+                 static_cast<const float*>(b1), static_cast<const float*>(b2),
+                 static_cast<const float*>(g2), static_cast<const float*>(bl2),
+                 static_cast<const bf16*>(w1t), static_cast<const bf16*>(w2t),
+                 static_cast<bf16*>(out), rows};
+  tail_fwd_wgmma<<<unsigned(grid), THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      s_map, w1_map, w2_map, p);
+  return int(cudaGetLastError());
+#else
+  (void)s, (void)g1, (void)bl1, (void)w1t, (void)b1, (void)w2t, (void)b2, (void)g2, (void)bl2;
+  (void)out, (void)rows, (void)c, (void)h, (void)grid, (void)smem_bytes, (void)stream;
+  return int(cudaErrorInvalidValue);  // this width takes the split path
+#endif
+}
+
+// The split path (widths the single-pass kernel does not take): the same
+// arguments without the launch geometry, and scratch: x_buf bf16 [rows, CP],
+// h_buf bf16 [rows, HP], z_buf f32 [rows, CP], stats f32 [rows, 2].  Four
+// launches on `stream`.
+extern "C" int fused_ln_mlp_ln_fwd_bf16_split(const void* s, const void* g1, const void* bl1,
+                                              const void* w1t, const void* b1, const void* w2t,
+                                              const void* b2, const void* g2, const void* bl2,
+                                              void* out, void* x_buf, void* h_buf, void* z_buf,
+                                              void* stats, long long rows, int c, int h,
+                                              void* stream) {
+#if !TAIL_FUSED
+  using namespace split;
+  if (c != C || h != H || rows < 0) return int(cudaErrorInvalidValue);
+  if (rows == 0) return int(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  tail_split_ln1<<<row_tiles(rows), RTHREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(s), F(g1), F(bl1), static_cast<__nv_bfloat16*>(x_buf),
+      static_cast<float2*>(stats), rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  Epi e{F(b1), nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<__nv_bfloat16*>(h_buf), nullptr,
+        nullptr, rows};
+  if ((err = launch_gemm<EPI_H>(x_buf, w1t, e, st)) != cudaSuccess) return int(err);
+  e = Epi{F(b2), static_cast<const __nv_bfloat16*>(s), static_cast<const float2*>(stats), F(g1), F(bl1),
+          nullptr, nullptr, static_cast<float*>(z_buf), nullptr, rows};
+  if ((err = launch_gemm<EPI_Z>(h_buf, w2t, e, st)) != cudaSuccess) return int(err);
+  tail_split_ln2<<<row_tiles(rows), RTHREADS, 0, st>>>(static_cast<const float*>(z_buf), F(g2),
+                                                       F(bl2), static_cast<__nv_bfloat16*>(out), rows);
+  return int(cudaGetLastError());
+#else
+  (void)s, (void)g1, (void)bl1, (void)w1t, (void)b1, (void)w2t, (void)b2, (void)g2, (void)bl2;
+  (void)out, (void)x_buf, (void)h_buf, (void)z_buf, (void)stats, (void)rows, (void)c, (void)h;
+  (void)stream;
+  return int(cudaErrorInvalidValue);  // this width takes the single-pass kernel
+#endif
 }
 
 extern "C" int fused_ln_mlp_ln_fwd_f32(const void* s, const void* g1, const void* bl1,
                                        const void* w1t, const void* b1, const void* w2t,
                                        const void* b2, const void* g2, const void* bl2,
-                                       void* out, long long rows, int c, int h, int num_sms,
-                                       void* stream) {
-  return launch<float>(s, g1, bl1, w1t, b1, w2t, b2, g2, bl2, out, rows, c, h, num_sms, stream);
+                                       void* out, long long rows, int c, int h, int grid,
+                                       long long smem_bytes, void* stream) {
+  using namespace f32;
+  if (c != C || h != H || grid <= 0 || rows < 0 || smem_bytes != (long long)SMEM)
+    return int(cudaErrorInvalidValue);
+  if (rows == 0) return int(cudaSuccess);
+  cudaError_t err = cudaFuncSetAttribute(tail_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(SMEM));
+  if (err != cudaSuccess) return int(err);
+  tail_fwd_f32<<<unsigned(grid), THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s), static_cast<const float*>(g1), static_cast<const float*>(bl1),
+      static_cast<const float*>(w1t), static_cast<const float*>(b1),
+      static_cast<const float*>(w2t), static_cast<const float*>(b2),
+      static_cast<const float*>(g2), static_cast<const float*>(bl2), static_cast<float*>(out),
+      rows);
+  return int(cudaGetLastError());
 }
 
-// Dynamic shared memory a block takes, and whether it stages the weights.
+// Dynamic shared memory a block takes (bf16 on the split path: its largest
+// GEMM block), whether it stages the weights, and whether this width takes
+// the split path.
+#if TAIL_FUSED
+constexpr long long kBf16Smem = k1::SMEM;
+constexpr int kBf16Stage = k1::kStage;
+#else
+constexpr long long kBf16Smem = split::SMEM;
+constexpr int kBf16Stage = 0;
+#endif
 extern "C" long long fused_ln_mlp_ln_fwd_smem_bytes(int bf16) {
-  return bf16 ? (long long)Smem<__nv_bfloat16>::total : (long long)Smem<float>::total;
+  return bf16 ? kBf16Smem : (long long)f32::SMEM;
 }
 
-extern "C" int fused_ln_mlp_ln_fwd_stages_weights(int bf16) {
-  return bf16 ? int(Smem<__nv_bfloat16>::kStage) : int(Smem<float>::kStage);
-}
+extern "C" int fused_ln_mlp_ln_fwd_stages_weights(int bf16) { return bf16 ? kBf16Stage : 0; }
+
+extern "C" int fused_ln_mlp_ln_split(void) { return int(!TAIL_FUSED); }

@@ -25,18 +25,24 @@ plain versions in both directions; a CUDA tensor launches or raises.
 
 Widths.  The kernels take C and H as compile-time constants: each (C, H) a
 run meets is built into its own library at first use, and every width runs.
-The weights go to the kernels as W1^T and W2^T in the stream dtype,
-zero-padded to multiples of 16 (the library's ``*_padded_widths``).  A bf16
-block stages both weights in shared memory where they fit one SM's 227 KB
-beside its buffers (dim 128 with mlp_ratio 3: 230,144 B) and otherwise reads
-them through L2 (dim 128 with mlp_ratio 4, dim 256); the f32 twins always
-read them through L2.  The tile routine is shared with K7
-(``csrc/tail_common.cuh``).
+The bf16 kernels are written for Hopper (``csrc/tail_hopper.cuh``: wgmma,
+TMA, 64-row tiles a warpgroup); :func:`launch_plan` is their launch
+geometry and shared memory in plain Python, which the library checks.  They
+take W1^T and W2^T zero-padded to multiples of 64, stage both in shared
+memory where they fit one SM's 227 KB beside the tile buffers (dim 128 with
+mlp_ratio 3: 230,416 B for K1) and otherwise stream them chunk by chunk from
+L2 (dim 128 with mlp_ratio 4, dim 256).  That single pass takes C a multiple
+of 8 up to 256; every other C takes the split path (``csrc/tail_split.cuh``:
+LayerNorm row kernels and wgmma GEMMs that pass x, h and the f32 residual
+sum through device memory, the same rounding points).  The f32 twins (CUDA
+cores, ``csrc/tail_common.cuh``'s tile routine, shared with K7 and K9) take
+the weights padded to multiples of 16 and read them through L2.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -199,9 +205,14 @@ def _kernel_lib(c: int, h: int) -> ctypes.CDLL:
     lib = _build.load("fused_mlp", _widths(c, h))
     for fn in (lib.fused_ln_mlp_ln_fwd_bf16, lib.fused_ln_mlp_ln_fwd_f32):
         fn.argtypes = ([ctypes.c_void_p] * 10
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.fused_ln_mlp_ln_fwd_bf16_split.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.fused_ln_mlp_ln_fwd_bf16_split.restype = ctypes.c_int
+    lib.fused_ln_mlp_ln_split.argtypes = []
+    lib.fused_ln_mlp_ln_split.restype = ctypes.c_int
     lib.fused_ln_mlp_ln_fwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_ln_mlp_ln_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.fused_ln_mlp_ln_fwd_stages_weights.argtypes = [ctypes.c_int]
@@ -214,17 +225,154 @@ def _bwd_lib(c: int, h: int) -> ctypes.CDLL:
     lib = _build.load("fused_mlp_bwd", _widths(c, h))
     for fn in (lib.fused_ln_mlp_ln_bwd_bf16, lib.fused_ln_mlp_ln_bwd_f32):
         fn.argtypes = ([ctypes.c_void_p] * 18
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.fused_ln_mlp_ln_bwd_sizes.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-    lib.fused_ln_mlp_ln_bwd_sizes.restype = None
-    lib.fused_ln_mlp_ln_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fused_ln_mlp_ln_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_ln_mlp_ln_bwd_bf16_split.argtypes = (
+        [ctypes.c_void_p] * 20
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    lib.fused_ln_mlp_ln_bwd_bf16_split.restype = ctypes.c_int
+    for name in ("fused_ln_mlp_ln_bwd_smem_bytes", "fused_ln_mlp_ln_bwd_wgrad_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.fused_ln_mlp_ln_bwd_stages_weights.argtypes = [ctypes.c_int]
     lib.fused_ln_mlp_ln_bwd_stages_weights.restype = ctypes.c_int
     return lib
+
+
+# The bf16 kernels' plan (csrc/tail_hopper.cuh, fused_mlp.cu, fused_mlp_bwd.cu
+# compute the same numbers as constants and refuse a launch that disagrees).
+TILE_ROWS = 64          # rows a warpgroup tile
+HIDDEN_CHUNK = 64       # hidden columns a chunk
+WGRAD_ROWS = 64         # rows a wgrad stage
+SPLIT_STAGES = 4        # K stages of a split-path GEMM's ring
+_ALIGN_SLACK = 1024     # the kernels align their shared memory to 1,024 B
+_BAR_RESERVE = 256      # room kept for mbarriers when deciding what fits
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Launch geometry, shared memory and scratch of the bf16 K1 and K2 for
+    C = ``c``, H = ``h`` and ``rows`` rows on ``num_sms`` SMs."""
+    c: int
+    h: int
+    rows: int
+    cp: int                 # C and H padded to 64-column panels
+    hp: int
+    warpgroups: int         # consumer warpgroups a block (K1, K2's rows pass)
+    tile_rows: int          # rows a warpgroup tile
+    tiles: int
+    grid: int               # persistent blocks of K1 and of K2's rows pass
+    fwd_staged: bool        # K1 stages both weights once a block
+    fwd_ring: int           # else: weight-ring stages a warpgroup
+    fwd_smem: int           # dynamic shared memory a K1 block, bytes
+    rows_staged: bool
+    rows_ring: int
+    rows_smem: int
+    wgrad_tile_n: int       # a wgrad warpgroup's output tile: 64 x wgrad_tile_n
+    wgrad_warpgroups: int
+    wgrad_super_tiles: int  # blocks a row chunk (each covers wgrad_warpgroups tiles)
+    wgrad_stages: int
+    wgrad_smem: int
+    chunks: int             # wgrad row chunks (split K)
+    chunk_rows: int
+    vec_partials: int       # rows of K2's vector partial (a block; split: a tile)
+    scratch_bytes: int      # K2's device scratch: row operands and partials
+    split: bool = False     # the split path (tail_split.cuh)
+    fwd_scratch_bytes: int = 0  # K1's device scratch (split path only)
+
+    @property
+    def wgrad_grid(self) -> tuple:
+        return (self.wgrad_super_tiles, self.chunks, 2)
+
+
+def _split_gemm_smem(n: int) -> int:
+    """Shared memory of a split-path GEMM block whose output is n wide."""
+    bn = next(b for b in (256, 192, 128, 64) if n % b == 0)
+    return SPLIT_STAGES * (TILE_ROWS * 128 + bn * 128) + SPLIT_STAGES * 8 + _ALIGN_SLACK
+
+
+def launch_plan(c: int, h: int, rows: int, num_sms: int) -> LaunchPlan:
+    """The bf16 K1/K2 plan (``csrc/tail_hopper.cuh`` explains it): two
+    consumer warpgroups a block while C padded to 64 is at most 128 (mode A),
+    else one; weights staged where they fit ``SMEM_LIMIT`` beside the tile
+    buffers, else streamed through a ring of 64-column chunks; wgrad output
+    tiles of 64 x 192 (or 128, 64) shared by up to four warpgroups; row
+    chunks of a multiple of 64 rows that cover the rows exactly.  C not a
+    multiple of 8, or C padded to 64 above 256, takes the split path
+    (``csrc/tail_split.cuh``): one 64-row tile a block, its GEMMs'
+    ``SPLIT_STAGES``-stage rings, one vector partial a tile."""
+    if c <= 0 or h <= 0:
+        raise ValueError(f"the tail kernels take C, H > 0, got C {c}, H {h}")
+    cp, hp = _pad(c, 64), _pad(h, 64)
+    split = c % 8 != 0 or cp > 256
+    mode_a = cp <= 128
+    nwg = 2 if mode_a else 1
+    tile = TILE_ROWS * cp * 2
+    weights = 2 * cp * hp * 2
+    chunk = 2 * HIDDEN_CHUNK * cp * 2
+    nvec = 5 * c + h
+
+    def ring(fixed: int) -> int:
+        room = SMEM_LIMIT - _ALIGN_SLACK - _BAR_RESERVE - fixed
+        return min(4, room // (nwg * chunk))
+
+    def fits(bufs: int) -> bool:
+        return weights + bufs + _BAR_RESERVE + _ALIGN_SLACK <= SMEM_LIMIT
+
+    fwd_bufs = nwg * (tile if mode_a else 2 * tile)
+    fwd_staged = fits(fwd_bufs)
+    fwd_ring = 0 if fwd_staged else ring(fwd_bufs)
+    fwd_smem = ((weights if fwd_staged else 0) + fwd_bufs + nwg * fwd_ring * chunk
+                + nwg * (1 + fwd_ring) * 8 + _ALIGN_SLACK)
+    vec_smem = 0 if mode_a else _pad(4 * nvec * 4, 1024)
+    rows_bufs = (2 if mode_a else 3) * tile + vec_smem
+    rows_staged = fits(rows_bufs)
+    rows_ring = 0 if rows_staged else ring(rows_bufs)
+    rows_smem = ((weights if rows_staged else 0) + rows_bufs + nwg * rows_ring * chunk
+                 + nwg * (2 + rows_ring) * 8 + _ALIGN_SLACK)
+    wmt = cp // 64
+    nw = 192 if hp % 192 == 0 else (128 if hp % 128 == 0 else 64)
+    wnt = hp // nw
+    ms = 2 if wmt % 2 == 0 else 1
+    ns = 4 // ms if wnt % (4 // ms) == 0 else (2 if wnt % 2 == 0 else 1)
+    super_tiles = (wmt // ms) * (wnt // ns)
+    stage = WGRAD_ROWS * 128 * (ms + ns * nw // 64)
+    stages = min(4, (SMEM_LIMIT - _ALIGN_SLACK - _BAR_RESERVE) // stage)
+    wgrad_smem = stages * stage + stages * 8 + _ALIGN_SLACK
+    tiles = -(-rows // TILE_ROWS)
+    grid = min(num_sms, -(-tiles // nwg))
+    slabs = -(-rows // WGRAD_ROWS)
+    chunks = min(slabs, max(1, num_sms // (2 * super_tiles)))
+    chunk_rows = _pad(-(-rows // chunks), WGRAD_ROWS) if rows else WGRAD_ROWS
+    chunks = -(-rows // chunk_rows)
+    vec_partials = grid
+    fwd_scratch = 0
+    if split:
+        fwd_staged = rows_staged = False
+        fwd_ring = rows_ring = SPLIT_STAGES
+        fwd_smem = rows_smem = max(_split_gemm_smem(hp), _split_gemm_smem(cp))
+        nwg, grid = 1, tiles
+        vec_partials = tiles
+        # x [rows, CP] and h [rows, HP] bf16, z [rows, CP] f32, (mu1, rstd1)
+        fwd_scratch = rows * ((cp + hp) * 2 + cp * 4 + 8)
+    scratch = (2 * rows * (cp + hp) * 2 + vec_partials * nvec * 4
+               + 2 * chunks * cp * hp * 4 + (2 * c * h + 5 * c + h) * 4
+               + (rows * (cp * 4 + 8) if split else 0))
+    return LaunchPlan(
+        c=c, h=h, rows=rows, cp=cp, hp=hp, warpgroups=nwg, tile_rows=TILE_ROWS,
+        tiles=tiles, grid=grid, fwd_staged=fwd_staged, fwd_ring=fwd_ring,
+        fwd_smem=fwd_smem, rows_staged=rows_staged, rows_ring=rows_ring,
+        rows_smem=rows_smem, wgrad_tile_n=nw, wgrad_warpgroups=ms * ns,
+        wgrad_super_tiles=super_tiles, wgrad_stages=stages, wgrad_smem=wgrad_smem,
+        chunks=chunks, chunk_rows=chunk_rows, vec_partials=vec_partials,
+        scratch_bytes=scratch, split=split, fwd_scratch_bytes=fwd_scratch)
 
 
 @functools.cache
@@ -252,19 +400,27 @@ def _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2) -> None:
         raise ValueError("s must be 16-byte aligned")
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def padded_weights(w1, w2, dtype):
+def padded_weights(w1, w2, dtype, multiple: int = 16):
     """W1^T [HP, CP] and W2^T [CP, HP] in ``dtype``, zero-padded to
-    multiples of 16 (the layout the tail kernels read; a no-op pad at the
-    published widths)."""
+    multiples of ``multiple`` (the layout the tail kernels read: 16 for the
+    f32 twins and K7/K8, 64 for the bf16 K1/K2)."""
     c, hid = w1.shape
-    cp, hp = _pad16(c), _pad16(hid)
+    cp, hp = _pad(c, multiple), _pad(hid, multiple)
     w1t = F.pad(w1.t().to(dtype), (0, cp - c, 0, hp - hid)).contiguous()
     w2t = F.pad(w2.t().to(dtype), (0, hp - hid, 0, cp - c)).contiguous()
     return w1t, w2t
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _f32_params(g1, bl1, b1, b2, g2, bl2, hp: int):
+    """The LayerNorm parameters and biases as contiguous f32, b1 padded to
+    ``hp``."""
+    g1, bl1, b2, g2, bl2 = (p.to(torch.float32).contiguous() for p in (g1, bl1, b2, g2, bl2))
+    b1 = F.pad(b1.to(torch.float32), (0, hp - b1.shape[0])).contiguous()
+    return g1, bl1, b1, b2, g2, bl2
 
 
 def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
@@ -280,24 +436,38 @@ def fused_ln_mlp_ln(s, g1, bl1, w1, b1, w2, b2, g2, bl2):
     if s.device.type != "cuda":
         raise ValueError(f"fused_ln_mlp_ln runs on cpu or cuda, not {s.device}")
     _check_cuda_args(s, g1, bl1, w1, b1, w2, b2, g2, bl2)
-    c = s.shape[-1]
+    c, hid = s.shape[-1], w1.shape[-1]
     dt = s.dtype
-    lib = _kernel_lib(c, w1.shape[-1])
+    lib = _kernel_lib(c, hid)
     rows = s.numel() // c
     out = torch.empty_like(s)
     if rows == 0:
         return out
-    w1t, w2t = padded_weights(w1, w2, dt)   # nn.Linear layout, padded
-    g1, bl1, b1, b2, g2, bl2 = (p.to(torch.float32).contiguous()
-                                for p in (g1, bl1, b1, b2, g2, bl2))
-    fn = (lib.fused_ln_mlp_ln_fwd_bf16 if dt == torch.bfloat16
-          else lib.fused_ln_mlp_ln_fwd_f32)
-    index = s.device.index if s.device.index is not None else torch.cuda.current_device()
+    index = _device_index(s.device)
+    scratch = []
+    if dt == torch.bfloat16:
+        plan = launch_plan(c, hid, rows, num_sms(index))
+        w1t, w2t = padded_weights(w1, w2, dt, 64)
+        hp = plan.hp
+        if plan.split:   # x, h, the f32 residual sum, (mu1, rstd1)
+            f32, dev = torch.float32, s.device
+            scratch = [torch.empty(rows, plan.cp, dtype=dt, device=dev),
+                       torch.empty(rows, hp, dtype=dt, device=dev),
+                       torch.empty(rows, plan.cp, dtype=f32, device=dev),
+                       torch.empty(rows, 2, dtype=f32, device=dev)]
+            fn, geometry = lib.fused_ln_mlp_ln_fwd_bf16_split, ()
+        else:
+            fn, geometry = lib.fused_ln_mlp_ln_fwd_bf16, (plan.grid, plan.fwd_smem)
+    else:
+        w1t, w2t = padded_weights(w1, w2, dt)
+        fn, hp = lib.fused_ln_mlp_ln_fwd_f32, hid
+        geometry = (min(-(-rows // 16), 4 * num_sms(index)),
+                    lib.fused_ln_mlp_ln_fwd_smem_bytes(0))
+    g1, bl1, b1, b2, g2, bl2 = _f32_params(g1, bl1, b1, b2, g2, bl2, hp)
+    args = [s, g1, bl1, w1t, b1, w2t, b2, g2, bl2, out, *scratch]
     with torch.cuda.device(index):
-        err = fn(s.data_ptr(), g1.data_ptr(), bl1.data_ptr(), w1t.data_ptr(),
-                 b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), g2.data_ptr(),
-                 bl2.data_ptr(), out.data_ptr(), rows, c, w1.shape[-1],
-                 num_sms(index), torch.cuda.current_stream(index).cuda_stream)
+        err = fn(*(t.data_ptr() for t in args), rows, c, hid, *geometry,
+                 torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ln_mlp_ln kernel launch failed: CUDA error {err}")
     fused_ln_mlp_ln.launches += 1
@@ -329,42 +499,49 @@ def fused_ln_mlp_ln_bwd(s, g1, bl1, w1, b1, w2, b2, g2, bl2, dout):
     rows = s.numel() // c
     dt = s.dtype
     dev = s.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index = _device_index(dev)
     lib = _bwd_lib(c, hid)
-    sizes = (ctypes.c_longlong * 4)()
-    lib.fused_ln_mlp_ln_bwd_sizes(sizes)
-    n_vec, n_grads, slab, w_tiles = sizes
     sms = num_sms(index)
-    tiles = -(-rows // 16)
-    bf16 = int(dt == torch.bfloat16)
-    # a block that stages the weights fills an SM; otherwise a few a SM
-    per_sm = 1 if lib.fused_ln_mlp_ln_bwd_stages_weights(bf16) else (2 if bf16 else 4)
-    row_blocks = max(1, min(tiles, sms * per_sm))
-    # split-K over rows for the weight gradients: 2 x w_tiles output tiles x
-    # chunks blocks, about two a streaming multiprocessor
-    chunks = max(1, min(-(-rows // slab), (2 * sms) // (2 * w_tiles)))
-    chunk_rows = -(-max(rows, 1) // chunks)
-    chunk_rows = -(-chunk_rows // slab) * slab
-    w1t, w2t = padded_weights(w1, w2, dt)
-    g1f, bl1f, b1f, b2f, g2f, bl2f = (p.to(torch.float32).contiguous()
-                                      for p in (g1, bl1, b1, b2, g2, bl2))
+    f32 = torch.float32
+    split_scratch = []
+    if dt == torch.bfloat16:
+        plan = launch_plan(c, hid, rows, sms)
+        cp, hp = plan.cp, plan.hp
+        w1t, w2t = padded_weights(w1, w2, dt, 64)
+        fn = lib.fused_ln_mlp_ln_bwd_bf16
+        geometry = (plan.grid, plan.rows_smem, plan.chunks, plan.chunk_rows,
+                    plan.wgrad_super_tiles, plan.wgrad_smem)
+        if plan.split:   # z (then dr, then dx) and (mu1, rstd1); no row grid
+            fn, geometry = lib.fused_ln_mlp_ln_bwd_bf16_split, geometry[2:]
+            split_scratch = [torch.empty(rows, cp, dtype=f32, device=dev),
+                             torch.empty(rows, 2, dtype=f32, device=dev)]
+        vec_partial = torch.empty(plan.vec_partials, 5 * c + hid, dtype=f32, device=dev)
+        w_partial = torch.empty(2, plan.chunks, cp * hp, dtype=f32, device=dev)
+    else:
+        cp, hp = c, hid
+        w1t, w2t = padded_weights(w1, w2, dt)
+        fn = lib.fused_ln_mlp_ln_bwd_f32
+        # 16-row tiles on a few blocks a SM; split-K over 64-row slabs for
+        # the 128 x 128 weight-gradient tiles, about two blocks a SM
+        row_blocks = max(1, min(-(-rows // 16), 4 * sms))
+        w_tiles = -(-c // 128) * -(-hid // 128)
+        chunks = max(1, min(-(-rows // 64), (2 * sms) // (2 * w_tiles)))
+        chunk_rows = _pad(-(-max(rows, 1) // chunks), 64)
+        geometry = (row_blocks, lib.fused_ln_mlp_ln_bwd_smem_bytes(0), chunks, chunk_rows,
+                    w_tiles, lib.fused_ln_mlp_ln_bwd_wgrad_smem_bytes(0))
+        vec_partial = torch.zeros(row_blocks * 8, 5 * c + hid, dtype=f32, device=dev)
+        w_partial = torch.empty(2, chunks, c * hid, dtype=f32, device=dev)
+    g1f, bl1f, b1f, b2f, g2f, bl2f = _f32_params(g1, bl1, b1, b2, g2, bl2, hp)
     ds = torch.empty_like(s)
-    x_buf = torch.empty(rows, c, dtype=dt, device=dev)
-    h_buf = torch.empty(rows, hid, dtype=dt, device=dev)
-    dm_buf = torch.empty(rows, c, dtype=dt, device=dev)
-    dh_buf = torch.empty(rows, hid, dtype=dt, device=dev)
-    vec_partial = torch.zeros(row_blocks * 8, n_vec, dtype=torch.float32, device=dev)
-    w_partial = torch.empty(2, chunks, c * hid, dtype=torch.float32, device=dev)
-    grads = torch.empty(n_grads, dtype=torch.float32, device=dev)
-    fn = (lib.fused_ln_mlp_ln_bwd_bf16 if dt == torch.bfloat16
-          else lib.fused_ln_mlp_ln_bwd_f32)
+    x_buf = torch.empty(rows, cp, dtype=dt, device=dev)
+    h_buf = torch.empty(rows, hp, dtype=dt, device=dev)
+    dm_buf = torch.empty(rows, cp, dtype=dt, device=dev)
+    dh_buf = torch.empty(rows, hp, dtype=dt, device=dev)
+    grads = torch.empty(2 * c * hid + 5 * c + hid, dtype=f32, device=dev)
+    args = [s, dout, g1f, bl1f, w1t, b1f, w2t, b2f, g2f, bl2f, ds, x_buf, h_buf, dm_buf,
+            dh_buf, *split_scratch, vec_partial, w_partial, grads]
     with torch.cuda.device(index):
-        err = fn(s.data_ptr(), dout.data_ptr(), g1f.data_ptr(), bl1f.data_ptr(),
-                 w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-                 g2f.data_ptr(), bl2f.data_ptr(), ds.data_ptr(), x_buf.data_ptr(),
-                 h_buf.data_ptr(), dm_buf.data_ptr(), dh_buf.data_ptr(),
-                 vec_partial.data_ptr(), w_partial.data_ptr(), grads.data_ptr(),
-                 rows, c, hid, row_blocks, chunks, chunk_rows,
+        err = fn(*(t.data_ptr() for t in args), rows, c, hid, *geometry,
                  torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ln_mlp_ln_bwd kernel launch failed: CUDA error {err}")

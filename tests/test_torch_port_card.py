@@ -206,16 +206,88 @@ def test_bwd_kernel_matches_plain(dtype, rows):
 
 @pytest.mark.cuda
 def test_bwd_kernel_is_deterministic():
-    """No float atomics: two calls on the same inputs give the same bits."""
+    """No float atomics: two calls on the same inputs give the same bits, at
+    the training shape (512 graphs of 45 x 45 edge rows)."""
     _need_card()
+    rows = 512 * 45 * 45
     g = torch.Generator(device="cuda").manual_seed(5)
-    s = torch.randn(50_000, C, generator=g, device="cuda").bfloat16()
-    dout = torch.randn(50_000, C, generator=g, device="cuda").bfloat16()
+    s = torch.randn(rows, C, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(rows, C, generator=g, device="cuda").bfloat16()
     p = _params(5)
     first = port.fused_ln_mlp_ln_bwd(s, *p, dout)
     second = port.fused_ln_mlp_ln_bwd(s, *p, dout)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# the single pass's widths, then the split path's: C not a multiple of 8, C
+# padded to 64 above 256 (dim 512 with mlp_ratio 3)
+WIDTHS = [(64, 192), (96, 192), (128, 384), (128, 512), (256, 768),
+          (100, 300), (264, 792), (512, 1536)]
+# row counts around the 64-row warpgroup tile of the bf16 kernels
+EDGE_ROWS = (1, 63, 64, 65, 127, 129, 8195)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_at_tile_edges_match_plain(c, h, dtype):
+    """K1 and K2 at row counts around the 64-row tile, at every width the
+    card tests build, against their plain versions (K2 with the kink
+    witness)."""
+    _need_card()
+    p = _params(c + h, c, h)
+    for rows in EDGE_ROWS:
+        g = torch.Generator(device="cuda").manual_seed(rows)
+        s = torch.randn(rows, c, generator=g, device="cuda").to(dtype)
+        dout = torch.randn(rows, c, generator=g, device="cuda").to(dtype)
+        _assert_close(port.fused_ln_mlp_ln(s, *p), port.fused_ln_mlp_ln_reference(s, *p),
+                      dtype)
+        got = port.fused_ln_mlp_ln_bwd(s, *p, dout)
+        torch.cuda.synchronize()
+        ref = _witnessed_reference(got, s, p, dout, dtype)
+        _assert_ds_close(got, ref, dtype)
+        _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", WIDTHS)
+def test_launch_plan_matches_the_library(c, h):
+    """The pure-Python launch plan gives the shared memory and the staging
+    that the bf16 kernels were compiled with."""
+    _need_card()
+    plan = port.launch_plan(c, h, 1000, port.num_sms(0))
+    lib, blib = port._kernel_lib(c, h), port._bwd_lib(c, h)
+    assert plan.fwd_smem == lib.fused_ln_mlp_ln_fwd_smem_bytes(1)
+    assert plan.rows_smem == blib.fused_ln_mlp_ln_bwd_smem_bytes(1)
+    assert plan.wgrad_smem == blib.fused_ln_mlp_ln_bwd_wgrad_smem_bytes(1)
+    assert plan.fwd_staged == bool(lib.fused_ln_mlp_ln_fwd_stages_weights(1))
+    assert plan.rows_staged == bool(blib.fused_ln_mlp_ln_bwd_stages_weights(1))
+    assert plan.split == bool(lib.fused_ln_mlp_ln_split())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_function_matches_plain(dtype):
+    """FusedLnMlpLn through autograd: K1 forward and K2 backward, one launch
+    each, against the plain versions."""
+    _need_card()
+    rows = 16 * 512 + 3
+    p = [t.requires_grad_() for t in _params(7)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    s = torch.randn(rows, C, generator=g, device="cuda").to(dtype).requires_grad_()
+    dout = torch.randn(rows, C, generator=g, device="cuda").to(dtype)
+    before = (port.fused_ln_mlp_ln.launches, port.fused_ln_mlp_ln_bwd.launches)
+    out = port.FusedLnMlpLn.apply(s, *p)
+    got = torch.autograd.grad(out, [s, *p], dout)
+    torch.cuda.synchronize()
+    assert (port.fused_ln_mlp_ln.launches, port.fused_ln_mlp_ln_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [t.detach() for t in p]
+    _assert_close(out, port.fused_ln_mlp_ln_reference(s.detach(), *plain), dtype)
+    ref = _witnessed_reference(got, s.detach(), plain, dout, dtype)
+    _assert_ds_close(got, ref, dtype)
+    _assert_grads_close(got, ref, dtype)
 
 
 @pytest.mark.cuda
