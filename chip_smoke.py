@@ -41,9 +41,11 @@ exits non-zero without printing a result line:
                events, beside the card's bound (K1, K2, also at 128/512 and
                on the split path at 512/1536;
                K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4); K2's
-               three launches one by one (torch.profiler); beside K1 and K2
-               the same products through torch.matmul, a labelled
-               reference (2 for K1, 6 for K2).
+               three and K8's seven launches one by one (torch.profiler);
+               beside K1, K2, K7 and K8 the same products through
+               torch.matmul, a labelled reference (2 for K1, 6 for K2; 4
+               for K7 and 12 for K8, bf16 where both operands are exact in
+               bf16, else f32 with TF32 off).
 7. profile  — one serving forward under torch.profiler, without and with
                ``use_pallas``: device time by kernel and the card's idle
                share of the forward.
@@ -325,8 +327,13 @@ def rel_err(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-# K2's three launches by kernel name (names no PyTorch kernel has)
+# K2's three and K8's seven launches by kernel name (names no PyTorch kernel
+# has); K7 is one launch
 K2_LAUNCHES = {"rows": "tail_bwd_rows", "wgrad": "tail_bwd_wgrad", "reduce": "tail_bwd_reduce"}
+K7_LAUNCH = "block_fwd_"
+K8_LAUNCHES = {"fwd attn": "block_bwd_fwd_attn", "fwd mlp": "block_bwd_fwd_mlp",
+               "mlp": "block_bwd_mlp", "attn": "block_bwd_attn", "node": "block_bwd_node",
+               "wgrad": "block_bwd_wgrad", "reduce": "block_bwd_reduce"}
 
 
 def launch_split(fn, patterns: dict) -> dict:
@@ -370,6 +377,35 @@ def matmul_products(rows: int, c: int, h: int, gen):
         torch.matmul(dh, w1.t())
         torch.matmul(x.t(), dh)
         torch.matmul(hh.t(), dm)
+    return fwd, bwd
+
+
+def block_matmul_products(rows: int, c: int, h: int, gen):
+    """K7's four and K8's twelve products through torch.matmul on random
+    operands of the main shape, each in the type of its route: bf16 where
+    both operands are exact in bf16 (e; K7's fc1 and fc2), f32 with TF32 off
+    for every f32-accurate one.  A reference time for the products alone,
+    not a computation of K7 or K8."""
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    bf = torch.bfloat16
+    yb, hb, xc, xh = r(rows, c, dtype=bf), r(rows, h, dtype=bf), r(rows, c), r(rows, h)
+    wcb, w1b, w2b = r(c, c, dtype=bf), r(c, h, dtype=bf), r(h, c, dtype=bf)
+    wc, w1, w2 = wcb.float(), w1b.float(), w2b.float()
+
+    def fwd():
+        torch.matmul(yb, wcb)      # e
+        torch.matmul(xc, wc)       # t Woe
+        torch.matmul(yb, w1b)      # round(u) W1
+        torch.matmul(hb, w2b)      # round(h) W2
+
+    def bwd():
+        torch.matmul(yb, wcb)      # e
+        for a, b_ in ((xc, wc), (xc, w1), (xh, w2), (xc, w2.t()), (xh, w1.t()),
+                      (xc, wc.t()), (xc, wc.t()),          # y1, hpre, m, dh, du, dt, dy
+                      (xc.t(), xc), (xc.t(), xc),          # dWe, dWoe
+                      (xc.t(), xh), (xh.t(), xc)):         # dW1, dW2
+            torch.matmul(a, b_)
     return fwd, bwd
 
 
@@ -624,14 +660,26 @@ def check_block_kernels(fb, b: int, n: int, d: int, h: int, dtype, gen,
             "grad_rel_err": max(rels.values()), "flip_rows": n_bad}
 
 
+# An f32 operand split into three bf16 pieces (exact for normal floats) times
+# a bf16-exact one: three bf16 passes; f32 x f32: the six significant piece
+# products.  Each product is priced at the faster route its operand types
+# allow (NVIDIA data sheet rates).
+PEAK_F32_BF16_S = max(PEAK_FLOPS_S[torch.bfloat16] / 3, PEAK_3XTF32_S)
+PEAK_F32_F32_S = max(PEAK_FLOPS_S[torch.bfloat16] / 6, PEAK_3XTF32_S)
+
+
 def block_bounds(b: int, n: int, d: int, h: int, dtype) -> tuple:
     """Least milliseconds for one K7 and one K8 call: each input read once
-    and each output written once, against their products.  A product whose
-    operands are both exact in bf16 (in bf16: K7's e, fc1 and fc2, K8's e
-    recompute) at the bf16 rate; every other at full f32 accuracy on the
-    faster route, 3xTF32.  For each kernel ``(bound_ms, bound_by, ffma_ms)``:
-    the bound, and the operations' time on the FMA route the kernels take for
-    their f32-accurate products."""
+    and each output written once, against their products, each priced at
+    the faster route its operand types allow: both operands exact in bf16
+    (in bf16: K7's e, fc1 and fc2, K8's e recompute) at the bf16 rate; an
+    f32 operand times a bf16-exact one (in bf16: K7's t Woe, K8's y1, hpre,
+    m, dh, du, dt, dy and dWe) at 989 / 3 TFLOP/s (three bf16 passes); f32 x
+    f32 (K8's dWoe, dW1, dW2, and every product in f32) at 3xTF32's 165.
+    For each kernel ``(bound_ms, bound_by, ffma_ms, earlier_ms)``: the bound,
+    the operations' time of its f32-accurate products on f32 FMA (the
+    CUDA-core route's), and the bound as this script priced it before, every
+    product not exact in bf16 at 3xTF32's rate."""
     item = torch.tensor([], dtype=dtype).element_size()
     rows, nodes = b * n * n, b * n
     w_bytes = (2 * d * d + 2 * d * h) * item + (7 * d + h) * 4
@@ -640,20 +688,24 @@ def block_bounds(b: int, n: int, d: int, h: int, dtype) -> tuple:
     bwd_bytes = ((4 * nodes * d + 2 * rows * d) * item + w_bytes
                  + (3 * nodes * d + rows * d) * item + grad_bytes)
     bf16 = dtype == torch.bfloat16
-    # K7: e (D^2), fc1 and fc2 (D H each) exact in bf16; t @ Woe f32-accurate
-    k7_exact = 2 * rows * (d * d + 2 * d * h) if bf16 else 0
-    k7_f32 = 2 * rows * (2 * d * d + 2 * d * h) - k7_exact
-    # K8: twelve products, 2 R (6 D^2 + 6 D H); the e recompute exact in bf16
-    k8_exact = 2 * rows * d * d if bf16 else 0
-    k8_f32 = 2 * rows * (6 * d * d + 6 * d * h) - k8_exact
+    # (exact in bf16, f32 x bf16-exact, f32 x f32) operations of each kernel
+    if bf16:
+        k7 = (2 * rows * (d * d + 2 * d * h), 2 * rows * d * d, 0)
+        k8 = (2 * rows * d * d, 2 * rows * (4 * d * d + 4 * d * h),
+              2 * rows * (d * d + 2 * d * h))
+    else:
+        k7 = (0, 0, 2 * rows * (2 * d * d + 2 * d * h))
+        k8 = (0, 0, 2 * rows * (6 * d * d + 6 * d * h))
     out = []
-    for nbytes, exact, f32_ops, ffma_ops in (
-            (fwd_bytes, k7_exact, k7_f32, 2 * rows * 2 * d * d),
-            (bwd_bytes, k8_exact, k8_f32, k8_f32)):
+    for nbytes, (exact, mixed, full), ffma_ops in (
+            (fwd_bytes, k7, 2 * rows * 2 * d * d), (bwd_bytes, k8, sum(k8[1:]))):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = (exact / PEAK_FLOPS_S[torch.bfloat16] + f32_ops / PEAK_3XTF32_S) * 1e3
+        t_ops = (exact / PEAK_FLOPS_S[torch.bfloat16] + mixed / PEAK_F32_BF16_S
+                 + full / PEAK_F32_F32_S) * 1e3
+        earlier = max(t_bytes, (exact / PEAK_FLOPS_S[torch.bfloat16]
+                                + (mixed + full) / PEAK_3XTF32_S) * 1e3)
         bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        out.append(bound + (ffma_ops / PEAK_FFMA_S * 1e3,))
+        out.append(bound + (ffma_ops / PEAK_FFMA_S * 1e3, earlier))
     return tuple(out)
 
 
@@ -1238,9 +1290,10 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
               **{f"K2 {k}": share((v,)) for k, v in K2_LAUNCHES.items()},
               "K5": share(("attn_fwd_kernel<",)),
               "K6": share(("attn_bwd_",)),
-              "K7": share(("block_fwd_kernel<",)),
-              # K8's three launches
-              "K8": share(("block_bwd_",))}
+              "K7": share((K7_LAUNCH,)),
+              # K8's seven launches, and each on its own
+              "K8": share(tuple(K8_LAUNCHES.values())),
+              **{f"K8 {k}": share((v,)) for k, v in K8_LAUNCHES.items()}}
         print(f"   training step{label}, batch {TRAIN_BATCH}, bf16, on "
               f"{name} ({smi_line}): {step_ms:.3f} ms (CUDA events, mean of 3); "
               f"kernels {busy:.3f} ms; idle share "
@@ -1347,7 +1400,23 @@ def main() -> int:
               f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
               f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block")
         for c, h in ((DIM, HIDDEN), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN)):
-            print(f"   fused_block C {c} H {h} dynamic shared memory at N {N_ATOMS}: K7 "
+            bplan = fb.launch_plan(c, h, TRAIN_BATCH, N_ATOMS, num_sms(0))
+            blib = fb.library_plan(c, h)
+            if bplan.hopper:
+                if (blib["wgrad_tiles"] != bplan.wgrad_tiles
+                        or max(blib["fwd_smem"], blib["rows_smem"], blib["wgrad_smem"])
+                        > fb.SMEM_LIMIT):
+                    raise AssertionError(f"fused_block launch_plan({c}, {h}) disagrees with "
+                                         f"the library: {bplan} vs {blib}")
+                print(f"   fused_block C {c} H {h} bf16, Hopper route: dynamic shared memory "
+                      f"(the library's) K7 {blib['fwd_smem']} B, K8 rows launches "
+                      f"{blib['rows_smem']} B, wgrad {blib['wgrad_smem']} B; one warpgroup a "
+                      f"block, grid {bplan.grid}; 64-row slab tiles, {bplan.pad_share:.3f} of "
+                      f"their rows padding at N {N_ATOMS}; wgrad {bplan.wgrad_tiles} tiles x "
+                      f"{bplan.chunks} row chunks; K8 scratch {bplan.scratch_bytes / 1e9:.3f} "
+                      f"GB at B {TRAIN_BATCH}", flush=True)
+            print(f"   fused_block C {c} H {h} CUDA-core route (f32; bf16 where the Hopper "
+                  f"route does not take the shape): dynamic shared memory at N {N_ATOMS}: K7 "
                   f"bf16 {fb._fwd_lib(c, h).fused_block_fwd_smem_bytes(N_ATOMS, 1)} B, "
                   f"f32 {fb._fwd_lib(c, h).fused_block_fwd_smem_bytes(N_ATOMS, 0)} B; K8 "
                   f"rows pass {fb._bwd_lib(c, h).fused_block_bwd_smem_bytes()} B a block",
@@ -1861,22 +1930,39 @@ def main() -> int:
         k8_c = cuda_ms(block_composite_bwd, 5, warmup=2)
         k8_b = cuda_ms(k8, 5, warmup=1)
         k7_ms, k8_ms = (k7_a + k7_b) / 2, (k8_a + k8_b) / 2
-        (bound7, by7, ffma7), (bound8, by8, ffma8) = block_bounds(
+        k8_split = launch_split(k8, K8_LAUNCHES)
+        del bleaves, b_out
+        torch.cuda.empty_cache()
+        (bound7, by7, ffma7, earlier7), (bound8, by8, ffma8, earlier8) = block_bounds(
             TRAIN_BATCH, N_ATOMS, DIM, HIDDEN, torch.bfloat16)
         print(f"   fused_block_fwd (K7) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} H {HIDDEN} "
               f"on {name} ({smi_line}):")
         print(f"   kernel {k7_ms:.4f} ms (runs {k7_a:.4f}, {k7_b:.4f}); plain "
               f"{k7_p:.4f} ms; eager composite {k7_c:.4f} ms; bound {bound7:.4f} ms "
-              f"({by7}; bf16-exact products at the bf16 rate, t @ Woe at 3xTF32's; "
-              f"its two FFMA products alone {ffma7:.4f} ms on f32 FMA); kernel at "
+              f"({by7}; each product at the faster route its operand types allow: "
+              f"bf16-exact at the bf16 rate, t @ Woe as three bf16 passes; priced as "
+              f"before, t @ Woe at 3xTF32's: {earlier7:.4f} ms; its two f32-accurate "
+              f"products on f32 FMA {ffma7:.4f} ms); kernel at "
               f"{100 * bound7 / k7_ms:.1f}% of the bound")
         print(f"   fused_block_bwd (K8) bf16, same shape:")
         print(f"   kernel {k8_ms:.4f} ms (runs {k8_a:.4f}, {k8_b:.4f}); plain "
               f"{k8_p:.4f} ms; eager autograd backward of the composite {k8_c:.4f} ms; "
-              f"bound {bound8:.4f} ms ({by8}, 3xTF32; on f32 FMA {ffma8:.4f} ms); "
-              f"kernel at {100 * bound8 / k8_ms:.1f}% of the bound", flush=True)
-        del bacts, bparams, gy, gnb, bleaves, b_out
+              f"bound {bound8:.4f} ms ({by8}; f32 x bf16-exact as three bf16 passes, f32 x "
+              f"f32 at 3xTF32; priced as before, all f32-accurate products at 3xTF32: "
+              f"{earlier8:.4f} ms; on f32 FMA {ffma8:.4f} ms); kernel at "
+              f"{100 * bound8 / k8_ms:.1f}% of the bound", flush=True)
+        print("   K8 by launch (torch.profiler, one call): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in k8_split.items()), flush=True)
+        del bacts, bparams, gy, gnb
         torch.cuda.empty_cache()
+        # a reference, not library_ms: the products alone through torch.matmul
+        mm7, mm8 = block_matmul_products(ROWS, DIM, HIDDEN, gen)
+        mm7_ms, mm8_ms = cuda_ms(mm7, 10), cuda_ms(mm8, 5, warmup=2)
+        del mm7, mm8
+        torch.cuda.empty_cache()
+        print(f"   reference: K7's 4 products through torch.matmul {mm7_ms:.4f} ms; K8's 12 "
+              f"{mm8_ms:.4f} ms (bf16 where both operands are exact in bf16, else f32 with "
+              f"TF32 off; the same shapes)", flush=True)
 
         # K9 at the serving shape, bf16: the trained weights on the corpus
         # one-hots of phase 3.  Yardstick: slice 1's forward on the same
@@ -2052,8 +2138,10 @@ def main() -> int:
         "plain_ms": k7_p,
         "bound_ms": bound7,
         "bound_by": by7,
+        "bound_earlier_pricing_ms": earlier7,
         "bound_ffma_ms": ffma7,
         "library_ms": None,
+        "matmul_reference_ms": mm7_ms,
         "eager_composite_ms": k7_c,
     }, {
         "name": "fused_block_bwd",
@@ -2069,11 +2157,14 @@ def main() -> int:
         "max_abs_err": k78["bwd_max_abs_err"],
         "grad_rel_err": k78["grad_rel_err"],
         "ms": k8_ms,
+        "ms_by_launch": k8_split,
         "plain_ms": k8_p,
         "bound_ms": bound8,
         "bound_by": by8,
+        "bound_earlier_pricing_ms": earlier8,
         "bound_ffma_ms": ffma8,
         "library_ms": None,
+        "matmul_reference_ms": mm8_ms,
         "eager_autograd_ms": k8_c,
     }, {
         "name": "edge_attention_v2_fwd",

@@ -27,6 +27,14 @@ Backward: the four weights rounded then used in f32; the recompute keeps
 the plain versions with those points; :func:`block_edge_stream_reference` is
 the all-f32 oracle (JAX ``jnp_block_edge_stream``).
 
+Routes on the card (:func:`launch_plan`): bf16 at C = 128 with H a multiple
+of 128 and N <= 64 (the training path) runs the Hopper kernels of
+``csrc/block_hopper.cuh`` (every product on ``wgmma``; an f32 left operand
+as three bf16 pieces, :func:`split_bf16`; the softmax's terms divided by
+their sum as one reciprocal a channel, within an ulp of the plain versions'
+division); every other width, N > 64 and f32 run the CUDA-core kernels in
+the same sources.
+
 Routing (:func:`uses_kernel`, the JAX rule of ``fused_block_edge_stream``
 with "card" for "TPU"): on a CUDA tensor a channel width that is a multiple
 of 128 launches K7/K8 and any other width runs the oracle under autograd; on
@@ -41,6 +49,7 @@ vertices and batch is a Mosaic layout workaround and is not carried over.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -278,6 +287,137 @@ def witness_kink_flips(q, k, v, y, params, gy, gn, heads, dy, bad_rows, row_ok):
     return relu_set, bad_rows[~ok]
 
 
+def split_bf16(x):
+    """The kernels' three-piece split of an f32 tensor (``block_hopper.cuh``
+    ``split3``): bf16 tensors ``(a, b, c)`` with ``a = bf16(x)``, ``b =
+    bf16(x - a)``, ``c = bf16(x - a - b)`` (both differences exact in f32),
+    so that ``a + (b + c) == x`` bit for bit for 2^-110 <= |x| < 2^128 (1 -
+    2^-9) and for 0 (below, c loses the bits under 2^-133; from the top on,
+    a is infinite)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    x = x.to(f32)
+    a = x.to(bf16)
+    r = x - a.to(f32)
+    b = r.to(bf16)
+    c = (r - b.to(f32)).to(bf16)
+    return a, b, c
+
+
+def split_matmul(x, w):
+    """``x @ w`` as the kernels run it for an f32 ``x`` and a bf16-exact
+    ``w``: three bf16 pieces of ``x``, each product exact in f32, summed
+    into one f32 result (the smallest piece first)."""
+    f32 = torch.float32
+    wf = w.to(f32)
+    a, b, c = split_bf16(x)
+    return (c.to(f32) @ wf + b.to(f32) @ wf) + a.to(f32) @ wf
+
+
+# ---------------------------------------------------------------- launch plan
+
+# The Hopper route's geometry (csrc/block_hopper.cuh and fused_block_bwd.cu
+# hold the same constants; their shared memory is the libraries' own:
+# library_plan).
+TILE_ROWS = 64          # rows a slab tile (one warpgroup); N at most this
+HIDDEN_CHUNK = 64       # hidden columns a streamed weight chunk
+WGRAD_ROWS = 64         # rows a wgrad stage
+WGRAD_TILE = 128        # a wgrad block's output tile: C x 128
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Launch geometry and scratch of the bf16 K7 and K8 for C = ``c``, H =
+    ``h``, ``batch`` graphs of ``n`` atoms on ``num_sms`` SMs."""
+    c: int
+    h: int
+    batch: int
+    n: int
+    hopper: bool            # the Hopper route takes this shape (else CUDA cores)
+    slabs: int              # (b, i) slabs, one 64-row tile each
+    rows: int               # edge rows, batch * n * n
+    tile_rows: int
+    grid: int               # persistent blocks of K7 and of K8's rows launches
+    wgrad_tiles: int        # wgrad blocks a row chunk (C x 128 output tiles)
+    chunks: int             # wgrad row chunks (split K)
+    chunk_rows: int
+    vec_partials: int       # rows of K8's LayerNorm-sum partial [*, 4 C] (one a warp)
+    row_scratch_bytes: int  # K8's f32 rows for its later launches (and LN4's 1 / std)
+    scratch_bytes: int      # all of K8's device scratch
+
+    @property
+    def pad_share(self) -> float:
+        """Share of the tiles' rows that are padding past N."""
+        return 1.0 - self.n / self.tile_rows if self.hopper else 0.0
+
+    def slab_range(self, block: int) -> tuple:
+        """The contiguous run of slabs ``[begin, end)`` that persistent
+        block ``block`` of K7 and of K8's rows launches owns (the kernels'
+        ``SlabRange``)."""
+        return (self.slabs * block // self.grid, self.slabs * (block + 1) // self.grid)
+
+    def tile_rows_of(self, slab: int) -> tuple:
+        """The edge rows ``[first, first + n)`` of slab ``slab``'s 64-row
+        tile that are valid (the tile's other rows are padding)."""
+        return (slab * self.n, slab * self.n + self.n)
+
+    def wgrad_tile(self, tile: int) -> tuple:
+        """``(gradient, first column)`` of wgrad block ``tile`` of a row
+        chunk: each a C x 128 tile of dWe, dWoe, dW1 or dW2^T (the kernel's
+        ``wg_z``)."""
+        tc, th = self.c // WGRAD_TILE, self.h // WGRAD_TILE
+        for name, count in (("dwe", tc), ("dwoe", tc), ("dw1", th), ("dw2", th)):
+            if tile < count:
+                return name, tile * WGRAD_TILE
+            tile -= count
+        raise IndexError("no such wgrad tile")
+
+
+# Where K8's Hopper route takes each of the 12 parameter gradients from (the
+# reduce launch sums each over its partials in a fixed order): the wgrad
+# pass's weight partials, its column sums of the stored rows (the bias
+# gradients), or the rows launches' LayerNorm sums.
+GRADIENT_SOURCES = {
+    "dwe": "wgrad", "dbe": "wgrad column sums of de", "dwoe": "wgrad",
+    "dboe": "wgrad column sums of dtt", "dg4": "rows (backward)", "db4": "rows (backward)",
+    "dw1": "wgrad", "db1": "wgrad column sums of dhpre", "dw2": "wgrad (transposed)",
+    "db2": "wgrad column sums of dr", "dg6": "rows (recompute)", "db6": "rows (recompute)",
+}
+
+
+def launch_plan(c: int, h: int, batch: int, n: int, num_sms: int) -> LaunchPlan:
+    """The bf16 K7/K8 geometry (``csrc/block_hopper.cuh`` explains it): the
+    Hopper route where C is 128, H a multiple of 128 and 1 <= N <= 64; one
+    warpgroup a block, a persistent block per SM, each a contiguous run of
+    slabs; K8's wgrad in blocks of C x 128 output tiles over row chunks that
+    cover the rows exactly, about two blocks a SM; K8's f32 row scratch t,
+    xhat4, dr, dtt, de, dp [R, C], h, dhpre [R, H] and LN4's 1 / std [R]."""
+    if c <= 0 or h <= 0 or batch < 0 or n <= 0:
+        raise ValueError(f"K7/K8 take C, H, N > 0 and batch >= 0, got C {c}, H {h}, "
+                         f"batch {batch}, N {n}")
+    hopper = c == 128 and h % 128 == 0 and n <= TILE_ROWS
+    slabs, rows = batch * n, batch * n * n
+    wgrad_tiles = 2 * (c // WGRAD_TILE) + 2 * (h // WGRAD_TILE)
+    grid = max(1, min(num_sms, slabs))
+    stages = max(1, -(-rows // WGRAD_ROWS))
+    chunks = min(stages, max(1, (2 * num_sms) // max(1, wgrad_tiles)))
+    chunk_rows = _pad(-(-rows // chunks), WGRAD_ROWS) if rows else WGRAD_ROWS
+    chunks = max(1, -(-rows // chunk_rows))
+    row_scratch = rows * (6 * c + 2 * h + 1) * 4
+    scratch = (row_scratch + 3 * slabs * c * 4 + slabs * (h // HIDDEN_CHUNK) * 128 * 4
+               + grid * 4 * 4 * c * 4
+               + chunks * (3 * c + h) * 4 + chunks * (2 * c * c + 2 * c * h) * 4
+               + (2 * c * c + 2 * c * h + 7 * c + h) * 4)
+    return LaunchPlan(
+        c=c, h=h, batch=batch, n=n, hopper=hopper, slabs=slabs, rows=rows,
+        tile_rows=TILE_ROWS, grid=grid, wgrad_tiles=wgrad_tiles, chunks=chunks,
+        chunk_rows=chunk_rows, vec_partials=grid * 4, row_scratch_bytes=row_scratch,
+        scratch_bytes=scratch)
+
+
 # ---------------------------------------------------------------- kernels
 
 @functools.cache
@@ -290,6 +430,13 @@ def _fwd_lib(c: int, h: int) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fused_block_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_block_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_block_fwd_bf16_wgmma.argtypes = (
+        [ctypes.c_void_p] * 18
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_int, ctypes.c_void_p])
+    lib.fused_block_fwd_bf16_wgmma.restype = ctypes.c_int
+    lib.fused_block_fwd_wgmma_smem_bytes.argtypes = []
+    lib.fused_block_fwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -305,7 +452,25 @@ def _bwd_lib(c: int, h: int) -> ctypes.CDLL:
     lib.fused_block_bwd_sizes.restype = None
     lib.fused_block_bwd_smem_bytes.argtypes = []
     lib.fused_block_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_block_bwd_bf16_wgmma.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.fused_block_bwd_bf16_wgmma.restype = ctypes.c_int
+    lib.fused_block_bwd_wgmma_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_block_bwd_wgmma_plan.restype = None
     return lib
+
+
+def library_plan(c: int, h: int) -> dict:
+    """The Hopper route's shared memory a block (K7, K8's rows launches, its
+    wgrad), wgrad tiles a row chunk and K8's pointer count, as the two
+    libraries built for (c, h) compute them (zeros where that width takes
+    the CUDA-core route)."""
+    out = (ctypes.c_longlong * 4)()
+    _bwd_lib(c, h).fused_block_bwd_wgmma_plan(out)
+    return {"fwd_smem": _fwd_lib(c, h).fused_block_fwd_wgmma_smem_bytes(),
+            "rows_smem": out[1], "wgrad_smem": out[2], "wgrad_tiles": out[3],
+            "pointers": out[0]}
 
 
 def _check_cuda_args(name, q, k, v, y, params, extra=()):
@@ -353,6 +518,10 @@ def fused_block_fwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6
     hid = w1.shape[-1]
     dt, f32 = q.dtype, torch.float32
     lib = _fwd_lib(d, hid)
+    index = _device_index(q)
+    plan = launch_plan(d, hid, b, n, num_sms(index))
+    if dt == torch.bfloat16 and plan.hopper:
+        return _fwd_hopper(lib, plan, q, k, v, y, params, heads, index)
     if lib.fused_block_fwd_smem_bytes(n, int(dt == torch.bfloat16)) > SMEM_LIMIT:
         raise ValueError(f"fused_block_fwd kernel at N={n}, D={d} needs more than "
                          f"{SMEM_LIMIT:,} B of shared memory")
@@ -364,7 +533,6 @@ def fused_block_fwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6
     be_, boe_, g4_, b4_, b1_, b2_, g6_, b6_ = vecs
     y_out = torch.empty_like(y)
     node = torch.empty_like(q)
-    index = _device_index(q)
     fn = lib.fused_block_fwd_bf16 if dt == torch.bfloat16 else lib.fused_block_fwd_f32
     with torch.cuda.device(index):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), we_r.data_ptr(),
@@ -380,6 +548,81 @@ def fused_block_fwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6
 
 
 fused_block_fwd.launches = 0
+
+
+def _square_t(w):
+    """W^T [out, in] in bf16: the layout the Hopper kernels stage."""
+    return w.t().to(torch.bfloat16).contiguous()
+
+
+def _f32_vecs(*vecs):
+    return [p.to(torch.float32).contiguous() for p in vecs]
+
+
+def _fwd_hopper(lib, plan, q, k, v, y, params, heads, index):
+    we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6 = params
+    b, n, d = q.shape
+    hid = w1.shape[-1]
+    q, k, v, y = (a.contiguous() for a in (q, k, v, y))
+    we_t, woe_t = _square_t(we), _square_t(woe)
+    w1t, w2t = padded_weights(w1, w2, torch.bfloat16, HIDDEN_CHUNK)
+    be_, boe_, g4_, b4_, b1_, b2_, g6_, b6_ = _f32_vecs(be, boe, g4, b4, b1, b2, g6, b6)
+    y_out = torch.empty_like(y)
+    node = torch.empty_like(q)
+    with torch.cuda.device(index):
+        err = lib.fused_block_fwd_bf16_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), we_t.data_ptr(),
+            be_.data_ptr(), woe_t.data_ptr(), boe_.data_ptr(), g4_.data_ptr(), b4_.data_ptr(),
+            w1t.data_ptr(), b1_.data_ptr(), w2t.data_ptr(), b2_.data_ptr(), g6_.data_ptr(),
+            b6_.data_ptr(), y_out.data_ptr(), node.data_ptr(), b, n, d, hid,
+            1.0 / math.sqrt(d // heads), plan.grid, torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block_fwd kernel launch failed: CUDA error {err}")
+    fused_block_fwd.launches += 1
+    return y_out, node
+
+
+def _bwd_hopper(lib, plan, q, k, v, y, params, gy, gn, heads, index):
+    we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6 = params
+    b, n, d = q.shape
+    hid = w1.shape[-1]
+    dev, f32 = q.device, torch.float32
+    q, k, v, y, gy, gn = (a.contiguous() for a in (q, k, v, y, gy, gn))
+    w1t, w2t = padded_weights(w1, w2, torch.bfloat16, HIDDEN_CHUNK)
+    rows = plan.rows
+
+    def f32_buf(*shape):
+        return torch.empty(*shape, dtype=f32, device=dev)
+
+    keep = [q, k, v, y, gy, gn, _square_t(we), _square_t(woe), w1t, w2t,
+            *_f32_vecs(be, boe, g4, b4, b1, b2, g6, b6)]
+    # t, xhat4, dr, dtt, de, dp [R, C]; h, dhpre [R, H]; the softmax's max,
+    # 1 / sum and sum_j (gn v_j) s [B N, C]; LN4's 1 / std [R]; the ReLU mask,
+    # a 32-bit word a thread and hidden chunk
+    scratch = ([f32_buf(rows, d) for _ in range(6)] + [f32_buf(rows, hid) for _ in range(2)]
+               + [f32_buf(plan.slabs, d) for _ in range(3)] + [f32_buf(rows)]
+               + [torch.empty(plan.slabs * (hid // HIDDEN_CHUNK) * 128, dtype=torch.int32,
+                              device=dev)])
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dy = torch.empty_like(y)
+    n_grads = 2 * d * d + 2 * d * hid + 7 * d + hid
+    # the rows pass's LayerNorm sums, the wgrad pass's column sums, the
+    # weight partials, the gradients
+    tail = [f32_buf(plan.vec_partials, 4 * d), f32_buf(plan.chunks, 3 * d + hid),
+            f32_buf(plan.chunks * (2 * d * d + 2 * d * hid)), f32_buf(n_grads)]
+    ptrs = keep + scratch + [dq, dk, dv, dy] + tail
+    n_ptrs = library_plan(d, hid)["pointers"]
+    if len(ptrs) != n_ptrs:
+        raise RuntimeError(f"fused_block_bwd: {len(ptrs)} pointers, the library takes {n_ptrs}")
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    with torch.cuda.device(index):
+        err = lib.fused_block_bwd_bf16_wgmma(
+            ctypes.cast(arr, ctypes.c_void_p), b, n, d, hid, 1.0 / math.sqrt(d // heads),
+            plan.grid, plan.chunks, plan.chunk_rows, torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block_bwd kernel launch failed: CUDA error {err}")
+    fused_block_bwd.launches += 1
+    return dq, dk, dv, dy, tail[3]
 
 
 def fused_block_bwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6,
@@ -400,6 +643,17 @@ def fused_block_bwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6
     dt, f32, dev = q.dtype, torch.float32, q.device
     index = _device_index(q)
     lib = _bwd_lib(d, hid)
+    shapes = ((d, d), (d,), (d, d), (d,), (d,), (d,), (d, hid), (hid,), (hid, d),
+              (d,), (d,), (d,))
+
+    def param_grads(grads):
+        split = torch.split(grads, [math.prod(s_) for s_ in shapes])
+        return tuple(g_.view(s_).to(p.dtype) for g_, s_, p in zip(split, shapes, params))
+
+    plan = launch_plan(d, hid, b, n, num_sms(index))
+    if dt == torch.bfloat16 and plan.hopper:
+        dq, dk, dv, dy, grads = _bwd_hopper(lib, plan, q, k, v, y, params, gy, gn, heads, index)
+        return (dq, dk, dv, dy, *param_grads(grads))
     if lib.fused_block_bwd_smem_bytes() > SMEM_LIMIT:
         raise ValueError(f"fused_block_bwd kernel at D={d} needs more than "
                          f"{SMEM_LIMIT:,} B of shared memory")
@@ -446,11 +700,7 @@ def fused_block_bwd(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2, g6, b6
     if err != 0:
         raise RuntimeError(f"fused_block_bwd kernel launch failed: CUDA error {err}")
     fused_block_bwd.launches += 1
-    split = torch.split(grads, [d * d, d, d * d, d, d, d, d * hid, hid, hid * d, d, d, d])
-    shapes = ((d, d), (d,), (d, d), (d,), (d,), (d,), (d, hid), (hid,), (hid, d),
-              (d,), (d,), (d,))
-    return (dq, dk, dv, dy, *(g_.view(s_).to(p.dtype)
-                              for g_, s_, p in zip(split, shapes, params)))
+    return (dq, dk, dv, dy, *param_grads(grads))
 
 
 fused_block_bwd.launches = 0

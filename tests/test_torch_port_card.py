@@ -577,8 +577,14 @@ def test_graph_mha_use_pallas_matches_plain_attention(dtype):
 # parameter gradients by relative norm error, bf16 1e-3 and f32 1e-5 (sums
 # over all rows in another order), as K6's.
 
+# bf16 at C 128 with H a multiple of 128 and N <= 64 takes the Hopper route
+# (fused_block.launch_plan): the training shape, ragged N from 1 to 64, H
+# 128 and 512; N 65 and D 256 take the CUDA-core route, as f32 does.
 BLOCK_SHAPES = [(torch.bfloat16, 8, 45, 128, 384), (torch.float32, 8, 45, 128, 384),
-                (torch.bfloat16, 3, 13, 256, 768), (torch.float32, 3, 13, 256, 768)]
+                (torch.bfloat16, 3, 13, 256, 768), (torch.float32, 3, 13, 256, 768),
+                (torch.bfloat16, 5, 1, 128, 384), (torch.bfloat16, 4, 64, 128, 384),
+                (torch.bfloat16, 6, 13, 128, 128), (torch.bfloat16, 3, 20, 128, 512),
+                (torch.bfloat16, 2, 65, 128, 384)]
 
 
 def _block_inputs(b, n, d, h, dtype, seed):
@@ -679,6 +685,24 @@ def test_block_bwd_kernel_is_deterministic():
     second = fb.fused_block_bwd(*acts, *params, *cots, 8)
     for name, a, b in zip(fb.GRAD_NAMES, first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(128, 384), (128, 128), (128, 512), (256, 768)])
+def test_block_launch_plan_matches_the_library(c, h):
+    """The Python plan's wgrad tiles equal the library's; the libraries'
+    shared memory fits one SM (zeros where the width takes the CUDA-core
+    route)."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_block as fb
+
+    plan = fb.launch_plan(c, h, 512, 45, 132)
+    lib = fb.library_plan(c, h)
+    if plan.hopper:
+        assert lib["wgrad_tiles"] == plan.wgrad_tiles
+        assert 0 < max(lib["fwd_smem"], lib["rows_smem"], lib["wgrad_smem"]) <= fb.SMEM_LIMIT
+    else:
+        assert lib["fwd_smem"] == lib["rows_smem"] == lib["wgrad_smem"] == 0
 
 
 @pytest.mark.cuda
