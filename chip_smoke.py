@@ -10,7 +10,9 @@ exits non-zero without printing a result line:
 
 1. device   — card name, count and ``nvidia-smi`` name/power limit.
 2. build    — compile every kernel source with nvcc (``-Xptxas -v``), one
-               nvcc a (source, widths), all started together.
+               nvcc a (source, widths), all started together; each
+               kernel's registers and spills, and the Hopper routes' launch
+               plans held against the libraries' shared memory and tiles.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
@@ -41,11 +43,12 @@ exits non-zero without printing a result line:
                events, beside the card's bound (K1, K2, also at 128/512 and
                on the split path at 512/1536;
                K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4); K2's
-               three and K8's seven launches one by one (torch.profiler);
-               beside K1, K2, K7 and K8 the same products through
-               torch.matmul, a labelled reference (2 for K1, 6 for K2; 4
-               for K7 and 12 for K8, bf16 where both operands are exact in
-               bf16, else f32 with TF32 off).
+               three, K6's five and K8's seven launches one by one
+               (torch.profiler); beside K1, K2, K5, K6, K7 and K8 the same
+               products through torch.matmul, a labelled reference (2 for
+               K1, 6 for K2; 2 for K5 and 5 for K6 in f32; 4 for K7 and 12
+               for K8, bf16 where both operands are exact in bf16, else f32
+               with TF32 off).
 7. profile  — one serving forward under torch.profiler, without and with
                ``use_pallas``: device time by kernel and the card's idle
                share of the forward.
@@ -214,9 +217,18 @@ TOL_ATTN_GRAD_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 ATTN_PARAMS = (".attn.",)
 # f32 products at full f32 accuracy (NVIDIA data sheet): FMA on the CUDA
 # cores, or 3xTF32 on the tensor cores (three TF32 products each, 495
-# TFLOP/s).  K5/K6 run FFMA; their bound is the faster of the two.
+# TFLOP/s).  The bounds (attn_bounds, block_bounds) price each product at
+# the faster route its operand types allow (PEAK_F32_BF16_S and
+# PEAK_F32_F32_S below); the FFMA time of the CUDA-core route is printed
+# beside them.
 PEAK_FFMA_S = 67e12
 PEAK_3XTF32_S = 495e12 / 3
+# An f32 operand split into three bf16 pieces (exact for normal floats) times
+# a bf16-exact one: three bf16 passes; f32 x f32: the six significant piece
+# products.  Each product is priced at the faster route its operand types
+# allow (NVIDIA data sheet rates).
+PEAK_F32_BF16_S = max(PEAK_FLOPS_S[torch.bfloat16] / 3, PEAK_3XTF32_S)
+PEAK_F32_F32_S = max(PEAK_FLOPS_S[torch.bfloat16] / 6, PEAK_3XTF32_S)
 # K7/K8, the megablock, against their plain versions (compared in f32).  K7's
 # y_out and node_agg as K1's output: bf16 |err| <= 3e-2 + 2^-7 |ref| and mean
 # 2e-3, f32 1e-4 + 1e-5 |ref|.  K8's dq, dk, dv, dy as K6's outputs: bf16
@@ -334,11 +346,16 @@ K7_LAUNCH = "block_fwd_"
 K8_LAUNCHES = {"fwd attn": "block_bwd_fwd_attn", "fwd mlp": "block_bwd_fwd_mlp",
                "mlp": "block_bwd_mlp", "attn": "block_bwd_attn", "node": "block_bwd_node",
                "wgrad": "block_bwd_wgrad", "reduce": "block_bwd_reduce"}
+# K6's five launches on the Hopper route (bf16, D 128, N <= 64); the
+# CUDA-core route's are rows, deraw, wgrad and reduce (attn_bwd_*_kernel)
+K6_LAUNCHES = {"stats": "attn_bwd_stats", "rows": "attn_bwd_rows", "node": "attn_bwd_node",
+               "wgrad": "attn_bwd_wgrad", "reduce": "attn_bwd_reduce"}
 
 
-def launch_split(fn, patterns: dict) -> dict:
+def launch_split(fn, patterns: dict, required=None) -> dict:
     """Device milliseconds of one call of ``fn`` by kernel, summed over the
-    kernels whose name contains each pattern (torch.profiler)."""
+    kernels whose name contains each pattern (torch.profiler); a pattern of
+    ``required`` (default: all) that matches no kernel raises."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -352,9 +369,9 @@ def launch_split(fn, patterns: dict) -> dict:
                 if pat in e.key:
                     out[label] += e.self_device_time_total / 1e3
                     seen.add(label)
-    if seen != set(patterns):
-        raise AssertionError(f"no kernel named like {sorted(set(patterns) - seen)} "
-                             f"ran in the profiled call")
+    missing = set(patterns if required is None else required) - seen
+    if missing:
+        raise AssertionError(f"no kernel named like {sorted(missing)} ran in the profiled call")
     return out
 
 
@@ -550,11 +567,16 @@ def check_attn_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = Fal
 
 def attn_bounds(b: int, n: int, d: int, dtype) -> tuple:
     """Least milliseconds for one K5 and one K6 call: each input read once
-    and each output written once, against their f32 products (K5: e and
-    out_e, 2 x 2 R D^2; K6: five, 5 x 2 R D^2) at full f32 accuracy.  For
-    each kernel ``(bound_ms, bound_by, ffma_ms)``: the bound on the faster
-    f32 route (3xTF32 on the tensor cores) and the operations' time on the
-    FMA route the kernels take."""
+    and each output written once, against their products (K5: e and out_e;
+    K6: five), each priced at the faster route its operand types allow, as
+    block_bounds prices K7/K8's: both operands exact in bf16 (K6's t^T ge in
+    bf16) at the bf16 rate; an f32 operand times a bf16-exact one (in bf16:
+    K5's e = eraw We, K6's e, ge Woe^T and eraw^T de) at 989 / 3 TFLOP/s
+    (three bf16 passes); f32 x f32 (K5's t Woe, K6's de We^T, and every
+    product in f32) at 3xTF32's 165.  For each kernel ``(bound_ms, bound_by,
+    ffma_ms, earlier_ms)``: the bound, its products' time on f32 FMA (the
+    CUDA-core route's), and the bound as this script priced it before,
+    every product at 3xTF32's rate."""
     item = torch.tensor([], dtype=dtype).element_size()
     rows, nodes = b * n * n, b * n
     w_bytes = (2 * d * d + 2 * d) * 4
@@ -562,13 +584,43 @@ def attn_bounds(b: int, n: int, d: int, dtype) -> tuple:
         + (2 * rows * d + nodes * d) * item
     bwd_bytes = (4 * nodes * d + 3 * rows * d) * item + (2 * d * d + d) * 4 \
         + (3 * nodes * d + rows * d) * item + (2 * d * d + 2 * d) * 4
+    p = 2 * rows * d * d   # one product
+    # (exact in bf16, f32 x bf16-exact, f32 x f32) operations of each kernel
+    if dtype == torch.bfloat16:
+        k5, k6 = (0, p, p), (p, 3 * p, p)
+    else:
+        k5, k6 = (0, 0, 2 * p), (0, 0, 5 * p)
     out = []
-    for nbytes, flops in ((fwd_bytes, 4 * rows * d * d), (bwd_bytes, 10 * rows * d * d)):
+    for nbytes, (exact, mixed, full) in ((fwd_bytes, k5), (bwd_bytes, k6)):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_3XTF32_S * 1e3
+        t_ops = (exact / PEAK_FLOPS_S[torch.bfloat16] + mixed / PEAK_F32_BF16_S
+                 + full / PEAK_F32_F32_S) * 1e3
+        flops = exact + mixed + full
+        earlier = max(t_bytes, flops / PEAK_3XTF32_S * 1e3)
         bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        out.append(bound + (flops / PEAK_FFMA_S * 1e3,))
+        out.append(bound + (flops / PEAK_FFMA_S * 1e3, earlier))
     return tuple(out)
+
+
+def attn_matmul_products(rows: int, d: int, gen):
+    """K5's two and K6's five products through torch.matmul in f32 (TF32
+    off) on random operands of the main shape: a reference time for the
+    products alone, not a computation of K5 or K6."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, y, w1, w2 = r(rows, d), r(rows, d), r(d, d), r(d, d)
+
+    def fwd():
+        torch.matmul(x, w1)        # e = eraw We
+        torch.matmul(y, w2)        # t Woe
+
+    def bwd():
+        torch.matmul(x, w1)        # e
+        torch.matmul(y, w2.t())    # ge Woe^T
+        torch.matmul(x, w1.t())    # de We^T
+        torch.matmul(x.t(), y)     # eraw^T de
+        torch.matmul(y.t(), x)     # t^T ge
+    return fwd, bwd
 
 
 def block_inputs(b: int, n: int, d: int, h: int, dtype, gen) -> tuple:
@@ -658,14 +710,6 @@ def check_block_kernels(fb, b: int, n: int, d: int, h: int, dtype, gen,
         raise AssertionError("K8 gave other bits on a second call")
     return {"max_abs_err": max(fwd_err.values()), "bwd_max_abs_err": max(out_err.values()),
             "grad_rel_err": max(rels.values()), "flip_rows": n_bad}
-
-
-# An f32 operand split into three bf16 pieces (exact for normal floats) times
-# a bf16-exact one: three bf16 passes; f32 x f32: the six significant piece
-# products.  Each product is priced at the faster route its operand types
-# allow (NVIDIA data sheet rates).
-PEAK_F32_BF16_S = max(PEAK_FLOPS_S[torch.bfloat16] / 3, PEAK_3XTF32_S)
-PEAK_F32_F32_S = max(PEAK_FLOPS_S[torch.bfloat16] / 6, PEAK_3XTF32_S)
 
 
 def block_bounds(b: int, n: int, d: int, h: int, dtype) -> tuple:
@@ -1288,8 +1332,10 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
               # K2's three launches, and each on its own
               "K2": share(tuple(K2_LAUNCHES.values())),
               **{f"K2 {k}": share((v,)) for k, v in K2_LAUNCHES.items()},
-              "K5": share(("attn_fwd_kernel<",)),
+              "K5": share(("attn_fwd_",)),
+              # K6's launches, and the Hopper route's each on its own
               "K6": share(("attn_bwd_",)),
+              **{f"K6 {k}": share((v,)) for k, v in K6_LAUNCHES.items()},
               "K7": share((K7_LAUNCH,)),
               # K8's seven launches, and each on its own
               "K8": share(tuple(K8_LAUNCHES.values())),
@@ -1396,7 +1442,24 @@ def main() -> int:
                   f"{blib.fused_ln_mlp_ln_bwd_smem_bytes(0)} B a block; weights read "
                   f"through L2")
         alib, ablib = fa._fwd_lib(), fa._bwd_lib()
-        print(f"   fused_attention dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
+        aplan = fa.launch_plan(DIM, TRAIN_BATCH, N_ATOMS, num_sms(0))
+        alibp = fa.library_plan()
+        if (not aplan.hopper or (alibp["wgrad_tiles"], alibp["wgrad_rows"])
+                != (aplan.wgrad_tiles, fa.WGRAD_ROWS)
+                or max(alibp["fwd_smem"], alibp["rows_smem"], alibp["wgrad_smem"])
+                > fa.SMEM_LIMIT):
+            raise AssertionError(f"fused_attention launch_plan disagrees with the library: "
+                                 f"{aplan} vs {alibp}")
+        print(f"   fused_attention D {DIM} bf16, Hopper route: dynamic shared memory (the "
+              f"library's) K5 {alibp['fwd_smem']} B, K6 rows pass {alibp['rows_smem']} B, "
+              f"wgrad {alibp['wgrad_smem']} B; grid {aplan.grid}; "
+              f"64-row slab tiles, {aplan.pad_share:.3f} of their rows padding at N "
+              f"{N_ATOMS}; two warpgroups a block; K6 stats and node passes "
+              f"{aplan.pair_blocks} blocks each; wgrad "
+              f"{aplan.wgrad_tiles} tiles x {aplan.chunks} row chunks; K6 scratch "
+              f"{aplan.scratch_bytes / 1e9:.3f} GB at B {TRAIN_BATCH}")
+        print(f"   fused_attention CUDA-core route (f32; bf16 at other D or N > 64): "
+              f"dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
               f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
               f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block")
         for c, h in ((DIM, HIDDEN), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN)):
@@ -1820,21 +1883,34 @@ def main() -> int:
         k6_c = cuda_ms(composite_bwd, 10)
         k6_b = cuda_ms(k6, 10)
         k5_ms, k6_ms = (k5_a + k5_b) / 2, (k6_a + k6_b) / 2
-        (bound5, by5, ffma5), (bound6, by6, ffma6) = attn_bounds(
+        k6_split = launch_split(k6, K6_LAUNCHES)
+        (bound5, by5, ffma5, earlier5), (bound6, by6, ffma6, earlier6) = attn_bounds(
             TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)
         print(f"   edge_attention_fwd (K5) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} on "
               f"{name} ({smi_line}):")
         print(f"   kernel {k5_ms:.4f} ms (runs {k5_a:.4f}, {k5_b:.4f}); plain "
               f"{k5_p:.4f} ms; eager composite {k5_c:.4f} ms; bound {bound5:.4f} ms "
-              f"({by5}, 3xTF32; on f32 FMA {ffma5:.4f} ms); kernel at "
-              f"{100 * bound5 / k5_ms:.1f}% of the bound")
+              f"({by5}; e = eraw We as three bf16 passes, t Woe f32 x f32 at 3xTF32's "
+              f"rate; priced as before, both at 3xTF32's: {earlier5:.4f} ms; on f32 FMA "
+              f"{ffma5:.4f} ms); kernel at {100 * bound5 / k5_ms:.1f}% of the bound")
         print(f"   edge_attention_bwd (K6) bf16, same shape:")
         print(f"   kernel {k6_ms:.4f} ms (runs {k6_a:.4f}, {k6_b:.4f}); plain "
               f"{k6_p:.4f} ms; eager autograd backward of the composite {k6_c:.4f} ms; "
-              f"bound {bound6:.4f} ms ({by6}, 3xTF32; on f32 FMA {ffma6:.4f} ms); "
-              f"kernel at {100 * bound6 / k6_ms:.1f}% of the bound", flush=True)
+              f"bound {bound6:.4f} ms ({by6}; t^T ge exact in bf16, e, ge Woe^T and eraw^T "
+              f"de as three bf16 passes, de We^T at 3xTF32's rate; priced as before, all "
+              f"five at 3xTF32's: {earlier6:.4f} ms; on f32 FMA {ffma6:.4f} ms); kernel at "
+              f"{100 * bound6 / k6_ms:.1f}% of the bound", flush=True)
+        print("   K6 by launch (torch.profiler, one call): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in k6_split.items()), flush=True)
         del acts, aparams, ge, gn, t_res, cleaves, c_out
         torch.cuda.empty_cache()
+        # a reference, not library_ms: the products alone through torch.matmul
+        mm5, mm6 = attn_matmul_products(ROWS, DIM, gen)
+        mm5_ms, mm6_ms = cuda_ms(mm5, 10), cuda_ms(mm6, 10)
+        del mm5, mm6
+        torch.cuda.empty_cache()
+        print(f"   reference: K5's 2 products through torch.matmul {mm5_ms:.4f} ms; K6's 5 "
+              f"{mm6_ms:.4f} ms (f32 with TF32 off; the same shapes)", flush=True)
 
         # K1 / K2 at dim 128 with mlp_ratio 4 (weights streamed from L2), bf16
         s = torch.randn(ROWS, DIM, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2098,8 +2174,10 @@ def main() -> int:
         "plain_ms": k5_p,
         "bound_ms": bound5,
         "bound_by": by5,
+        "bound_earlier_pricing_ms": earlier5,
         "bound_ffma_ms": ffma5,
         "library_ms": None,
+        "matmul_reference_ms": mm5_ms,
         "eager_composite_ms": k5_c,
     }, {
         "name": "edge_attention_bwd",
@@ -2116,11 +2194,14 @@ def main() -> int:
         "max_abs_err": k56["bwd_max_abs_err"],
         "grad_rel_err": k56["grad_rel_err"],
         "ms": k6_ms,
+        "ms_by_launch": k6_split,
         "plain_ms": k6_p,
         "bound_ms": bound6,
         "bound_by": by6,
+        "bound_earlier_pricing_ms": earlier6,
         "bound_ffma_ms": ffma6,
         "library_ms": None,
+        "matmul_reference_ms": mm6_ms,
         "eager_autograd_ms": k6_c,
     }, {
         "name": "fused_block_fwd",

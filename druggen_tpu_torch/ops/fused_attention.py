@@ -19,7 +19,13 @@ and on the card.
 
 The kernels are ``csrc/fused_attention.cu`` (K5, the Pallas
 ``_fwd3_kernel``) and ``csrc/fused_attention_bwd.cu`` (K6, ``_bwd3_kernel``),
-hand-written CUDA for sm_90a; their headers state what bounds them.
+hand-written CUDA for sm_90a; their headers state what bounds them.  Two
+routes on the card (:func:`hopper_route`, the shape rule): bf16 at D = 128
+with 1 <= N <= 64 (the ``use_pallas`` training path) runs the Hopper kernels
+of ``csrc/attn_hopper.cuh`` (every product on ``wgmma``; We and Woe as three
+bf16 pieces each, an f32 left operand as three pieces in registers, so each
+product term is exact; geometry in :func:`launch_plan`); f32, any other D
+and N > 64 run the CUDA-core (FFMA) kernels in the same sources.
 Rounding points, as in the Pallas kernels: q, k, v and edge_raw are widened
 from the stream dtype to f32; We, be, Woe, boe are the f32 parameters; both
 projections are f32 x f32 products with f32 sums; ``edge_out`` and the
@@ -46,6 +52,7 @@ are rounded to the stream dtype.  Its routing rule is JAX's: the kernel at
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -78,6 +85,131 @@ def uses_v2_kernel(n: int, d: int, dtype) -> bool:
     within 12 MiB; anything else takes :func:`reference_attention`."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     return d % 128 == 0 and _vmem_estimate_bytes(n, d, itemsize) <= 12 * 2 ** 20
+
+
+# ---------------------------------------------------------------- launch plan
+
+# The Hopper route's geometry (csrc/attn_hopper.cuh and fused_attention_bwd.cu
+# hold the same constants; their shared memory is the libraries' own:
+# library_plan).
+HOPPER_D = 128          # the channel width the Hopper kernels are built for
+TILE_ROWS = 64          # rows a slab tile (one warpgroup); N at most this
+WGRAD_ROWS = 64         # rows a wgrad stage
+PAIR_THREADS = 256      # threads a block of K6's stats and node passes
+WARPGROUPS = 2          # warpgroups a block of K5 and K6's rows pass, a tile each
+
+
+def hopper_route(n: int, d: int, dtype) -> bool:
+    """The shape rule of K5/K6 on the card: bf16 at D = 128 with 1 <= N <= 64
+    takes the Hopper kernels; f32, any other D and N > 64 take the CUDA-core
+    kernels.  (The JAX rule, :func:`uses_kernel`, decides before this whether
+    the fused op runs at all.)"""
+    return dtype == torch.bfloat16 and d == HOPPER_D and 1 <= n <= TILE_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Launch geometry and scratch of the Hopper K5 and K6 for ``batch``
+    graphs of ``n`` atoms at D = ``d`` on ``num_sms`` SMs."""
+    d: int
+    batch: int
+    n: int
+    hopper: bool            # the shape takes the Hopper kernels (in bf16)
+    slabs: int              # (b, i) slabs, one 64-row tile each
+    rows: int               # edge rows, batch * n * n
+    tile_rows: int
+    grid: int               # persistent blocks of K5 and of K6's rows pass
+    warpgroups: int         # their warpgroups a block, taking its slabs in turn
+    pair_threads: int       # K6's stats and node passes: a thread a (slab or
+    pair_blocks: int        # (b, j), column pair)
+    wgrad_tiles: int        # wgrad blocks a row chunk: dWe and dWoe, D x D each
+    chunks: int             # wgrad row chunks (split K)
+    chunk_rows: int
+    scratch_bytes: int      # all of K6's device scratch
+
+    @property
+    def pad_share(self) -> float:
+        """Share of the tiles' rows that are padding past N."""
+        return 1.0 - self.n / self.tile_rows if self.hopper else 0.0
+
+    def slab_range(self, block: int) -> tuple:
+        """The contiguous run of slabs ``[begin, end)`` that persistent block
+        ``block`` owns (the kernels' ``SlabRange``)."""
+        return (self.slabs * block // self.grid, self.slabs * (block + 1) // self.grid)
+
+    def warpgroup_slabs(self, block: int, warpgroup: int) -> range:
+        """The slabs that warpgroup ``warpgroup`` of block ``block`` takes:
+        every ``warpgroups``-th of the block's run, from its
+        ``warpgroup``-th."""
+        begin, end = self.slab_range(block)
+        return range(begin + warpgroup, end, self.warpgroups)
+
+    def tile_rows_of(self, slab: int) -> tuple:
+        """The edge rows ``[first, first + n)`` of slab ``slab``'s 64-row
+        tile that are valid (the tile's other rows are padding)."""
+        return (slab * self.n, slab * self.n + self.n)
+
+    def graph_of(self, slab: int) -> int:
+        """The graph b of slab (b, i)."""
+        return slab // self.n
+
+    def pair_item(self, thread: int) -> tuple:
+        """``(b, atom, first column)`` of thread ``thread`` of K6's stats
+        pass (the slab (b, atom)'s softmax statistics of a column pair) and
+        of its node pass (the dk/dv column pair of key atom j = atom, summed
+        over the graph's query atoms)."""
+        c2 = self.d // 2
+        bj, pair = divmod(thread, c2)
+        b, j = divmod(bj, self.n)
+        return b, j, 2 * pair
+
+    def wgrad_tile(self, tile: int) -> tuple:
+        """``(gradient, first column)`` of wgrad block ``tile`` of a row
+        chunk: dWe or dWoe, each one D x D tile (the kernel's ``z``)."""
+        if 0 <= tile < self.wgrad_tiles:
+            return ("dwe", "dwoe")[tile], 0
+        raise IndexError("no such wgrad tile")
+
+    def chunk_rows_of(self, chunk: int) -> tuple:
+        """The edge rows ``[first, end)`` of wgrad row chunk ``chunk``."""
+        first = chunk * self.chunk_rows
+        return (min(first, self.rows), min(first + self.chunk_rows, self.rows))
+
+
+# Where K6's Hopper route takes each parameter gradient from (the reduce
+# launch sums each over its partials in a fixed order).
+GRADIENT_SOURCES = {"dwe": "wgrad", "dbe": "wgrad column sums of de",
+                    "dwoe": "wgrad", "dboe": "wgrad column sums of ge"}
+
+
+def launch_plan(d: int, batch: int, n: int, num_sms: int) -> LaunchPlan:
+    """The bf16 K5/K6 geometry (``csrc/attn_hopper.cuh`` explains it): the
+    Hopper route where D is 128 and 1 <= N <= 64; a persistent block per SM,
+    each a contiguous run of slabs, taken in turn by its two warpgroups (K5
+    and K6's rows pass); K6's stats and node passes a thread per (slab or
+    (b, j), column pair); its wgrad two blocks (dWe, dWoe) a row chunk over
+    row chunks that cover the rows exactly, about four blocks a SM; K6's
+    scratch: de and dbase [R, D] f32, the slabs' softmax max, 1 / sum and
+    dot [B N, D], the partials and the gradients."""
+    if d <= 0 or batch < 0 or n <= 0:
+        raise ValueError(f"K5/K6 take D, N > 0 and batch >= 0, got D {d}, batch {batch}, N {n}")
+    hopper = d == HOPPER_D and n <= TILE_ROWS
+    slabs, rows = batch * n, batch * n * n
+    grid = max(1, min(num_sms, slabs))
+    pair_threads = slabs * (d // 2)
+    wgrad_tiles = 2
+    stages = max(1, -(-rows // WGRAD_ROWS))
+    chunks = min(stages, max(1, (4 * num_sms) // wgrad_tiles))
+    per_chunk = -(-rows // chunks)
+    chunk_rows = -(-per_chunk // WGRAD_ROWS) * WGRAD_ROWS if rows else WGRAD_ROWS
+    chunks = max(1, -(-rows // chunk_rows))
+    scratch = (2 * rows * d + 3 * slabs * d + chunks * (2 * d * d + 2 * d)
+               + 2 * d * d + 2 * d) * 4
+    return LaunchPlan(
+        d=d, batch=batch, n=n, hopper=hopper, slabs=slabs, rows=rows, tile_rows=TILE_ROWS,
+        grid=grid, warpgroups=WARPGROUPS, pair_threads=pair_threads,
+        pair_blocks=-(-pair_threads // PAIR_THREADS), wgrad_tiles=wgrad_tiles, chunks=chunks,
+        chunk_rows=chunk_rows, scratch_bytes=scratch)
 
 
 # ---------------------------------------------------------------- plain math
@@ -219,6 +351,13 @@ def _fwd_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.edge_attention_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.edge_attention_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.edge_attention_fwd_bf16_wgmma.argtypes = (
+        [ctypes.c_void_p] * 11
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.edge_attention_fwd_bf16_wgmma.restype = ctypes.c_int
+    lib.edge_attention_fwd_wgmma_smem_bytes.argtypes = []
+    lib.edge_attention_fwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -235,7 +374,24 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.edge_attention_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.edge_attention_bwd_slab_rows.argtypes = []
     lib.edge_attention_bwd_slab_rows.restype = ctypes.c_int
+    lib.edge_attention_bwd_bf16_wgmma.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.edge_attention_bwd_bf16_wgmma.restype = ctypes.c_int
+    lib.edge_attention_bwd_wgmma_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.edge_attention_bwd_wgmma_plan.restype = None
     return lib
+
+
+def library_plan() -> dict:
+    """The Hopper route's shared memory a block (K5, K6's rows pass, its
+    wgrad), wgrad tiles a row chunk, rows a wgrad stage and K6's pointer
+    count, as the two libraries compute them."""
+    out = (ctypes.c_longlong * 5)()
+    _bwd_lib().edge_attention_bwd_wgmma_plan(out)
+    return {"fwd_smem": _fwd_lib().edge_attention_fwd_wgmma_smem_bytes(),
+            "rows_smem": out[1], "wgrad_smem": out[2], "wgrad_tiles": out[3],
+            "wgrad_rows": out[4], "pointers": out[0]}
 
 
 def _device_index(t) -> int:
@@ -265,7 +421,8 @@ def edge_attention_fwd(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
     """K5: ``(edge_out, node_agg, t)`` like
     :func:`edge_attention_fwd_reference`.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (counted in
-    ``edge_attention_fwd.launches``) or raises."""
+    ``edge_attention_fwd.launches``; the Hopper kernel where
+    :func:`hopper_route` sends the shape) or raises."""
     if q3.device.type == "cpu":
         return edge_attention_fwd_reference(q3, k3, v3, eraw, we, be, woe, boe, heads)
     if q3.device.type != "cuda":
@@ -281,16 +438,22 @@ def edge_attention_fwd(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
     node = torch.empty_like(q3)
     index = _device_index(q3)
     lib = _fwd_lib()
-    if lib.edge_attention_fwd_smem_bytes(n, d) > SMEM_LIMIT:
-        raise ValueError(f"edge_attention_fwd kernel at N={n}, D={d} needs more than "
-                         f"{SMEM_LIMIT:,} B of shared memory")
-    fn = (lib.edge_attention_fwd_bf16 if q3.dtype == torch.bfloat16
-          else lib.edge_attention_fwd_f32)
+    ptrs = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), eraw.data_ptr(), we.data_ptr(),
+            be.data_ptr(), woe.data_ptr(), boe.data_ptr(), edge_out.data_ptr(),
+            node.data_ptr(), t.data_ptr())
+    inv = 1.0 / math.sqrt(d // heads)
     with torch.cuda.device(index):
-        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), eraw.data_ptr(),
-                 we.data_ptr(), be.data_ptr(), woe.data_ptr(), boe.data_ptr(),
-                 edge_out.data_ptr(), node.data_ptr(), t.data_ptr(), b, n, d,
-                 1.0 / math.sqrt(d // heads), torch.cuda.current_stream(index).cuda_stream)
+        stream = torch.cuda.current_stream(index).cuda_stream
+        if hopper_route(n, d, q3.dtype):
+            plan = launch_plan(d, b, n, num_sms(index))
+            err = lib.edge_attention_fwd_bf16_wgmma(*ptrs, b, n, d, inv, plan.grid, stream)
+        else:
+            if lib.edge_attention_fwd_smem_bytes(n, d) > SMEM_LIMIT:
+                raise ValueError(f"edge_attention_fwd kernel at N={n}, D={d} needs more "
+                                 f"than {SMEM_LIMIT:,} B of shared memory")
+            fn = (lib.edge_attention_fwd_bf16 if q3.dtype == torch.bfloat16
+                  else lib.edge_attention_fwd_f32)
+            err = fn(*ptrs, b, n, d, inv, stream)
     if err != 0:
         raise RuntimeError(f"edge_attention_fwd kernel launch failed: CUDA error {err}")
     edge_attention_fwd.launches += 1
@@ -300,11 +463,40 @@ def edge_attention_fwd(q3, k3, v3, eraw, we, be, woe, boe, heads: int):
 edge_attention_fwd.launches = 0
 
 
+def _bwd_hopper(lib, plan, q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads, index):
+    b, n, d = q3.shape
+    f32, dev = torch.float32, q3.device
+
+    def f32_buf(*shape):
+        return torch.empty(*shape, dtype=f32, device=dev)
+
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
+    d_eraw = torch.empty_like(eraw)
+    grads = f32_buf(2 * d * d + 2 * d)
+    # inputs; de, dbase [R, D]; the slabs' softmax max, 1 / sum and dot;
+    # outputs; the weight and column-sum partials; the gradients
+    ptrs = [q3, k3, v3, gn, eraw, t_res, ge,
+            *(p.to(f32).contiguous() for p in (we, woe, be)),
+            f32_buf(plan.rows, d), f32_buf(plan.rows, d),
+            *(f32_buf(plan.slabs, d) for _ in range(3)), dq, dk, dv, d_eraw,
+            f32_buf(2, plan.chunks, d * d), f32_buf(plan.chunks, 2 * d), grads]
+    n_ptrs = library_plan()["pointers"]
+    if len(ptrs) != n_ptrs:
+        raise RuntimeError(f"edge_attention_bwd: {len(ptrs)} pointers, the library takes {n_ptrs}")
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    with torch.cuda.device(index):
+        err = lib.edge_attention_bwd_bf16_wgmma(
+            ctypes.cast(arr, ctypes.c_void_p), b, n, d, 1.0 / math.sqrt(d // heads), plan.grid,
+            plan.chunks, plan.chunk_rows, torch.cuda.current_stream(index).cuda_stream)
+    return err, (dq, dk, dv, d_eraw, grads)
+
+
 def edge_attention_bwd(q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads: int):
     """K6: ``(dq, dk, dv, d_eraw, dwe, dbe, dwoe, dboe)`` like
     :func:`edge_attention_bwd_reference`.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (counted in
-    ``edge_attention_bwd.launches``) or raises."""
+    ``edge_attention_bwd.launches``; the Hopper kernels where
+    :func:`hopper_route` sends the shape) or raises."""
     if q3.device.type == "cpu":
         return edge_attention_bwd_reference(q3, k3, v3, eraw, we, be, woe, t_res,
                                             ge, gn, heads)
@@ -317,13 +509,29 @@ def edge_attention_bwd(q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads: int)
                       ("gn", gn, (b, n, d))))
     q3, k3, v3, eraw, t_res, ge, gn = (x.contiguous() for x in
                                        (q3, k3, v3, eraw, t_res, ge, gn))
+    index = _device_index(q3)
+    lib = _bwd_lib()
+    if hopper_route(n, d, q3.dtype):
+        plan = launch_plan(d, b, n, num_sms(index))
+        err, (dq, dk, dv, d_eraw, grads) = _bwd_hopper(
+            lib, plan, q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads, index)
+    else:
+        err, (dq, dk, dv, d_eraw, grads) = _bwd_cuda_cores(
+            lib, q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads, index)
+    if err != 0:
+        raise RuntimeError(f"edge_attention_bwd kernel launch failed: CUDA error {err}")
+    edge_attention_bwd.launches += 1
+    dwe, dbe, dwoe, dboe = torch.split(grads, [d * d, d, d * d, d])
+    return dq, dk, dv, d_eraw, dwe.view(d, d), dbe, dwoe.view(d, d), dboe
+
+
+def _bwd_cuda_cores(lib, q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads, index):
+    b, n, d = q3.shape
     f32 = torch.float32
     we32 = we.to(f32).contiguous()
     we_t = we.to(f32).t().contiguous()
     woe_t = woe.to(f32).t().contiguous()
     be32 = be.to(f32).contiguous()
-    index = _device_index(q3)
-    lib = _bwd_lib()
     if lib.edge_attention_bwd_smem_bytes(n) > SMEM_LIMIT:
         raise ValueError(f"edge_attention_bwd kernel at N={n} needs more than "
                          f"{SMEM_LIMIT:,} B of shared memory")
@@ -352,11 +560,7 @@ def edge_attention_bwd(q3, k3, v3, eraw, we, be, woe, t_res, ge, gn, heads: int)
                  bias_partial.data_ptr(), w_partial.data_ptr(), grads.data_ptr(),
                  b, n, d, 1.0 / math.sqrt(d // heads), chunks, chunk_rows,
                  torch.cuda.current_stream(index).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"edge_attention_bwd kernel launch failed: CUDA error {err}")
-    edge_attention_bwd.launches += 1
-    dwe, dbe, dwoe, dboe = torch.split(grads, [d * d, d, d * d, d])
-    return dq, dk, dv, d_eraw, dwe.view(d, d), dbe, dwoe.view(d, d), dboe
+    return err, (dq, dk, dv, d_eraw, grads)
 
 
 edge_attention_bwd.launches = 0

@@ -313,6 +313,23 @@ def split_matmul(x, w):
     return (c.to(f32) @ wf + b.to(f32) @ wf) + a.to(f32) @ wf
 
 
+def split_matmul6(x, w):
+    """``x @ w`` as K5/K6 (``csrc/attn_hopper.cuh`` ``mma_pieces_w6``) run it
+    for an f32 ``x`` and an f32 ``w``: both as three bf16 pieces, the six
+    significant piece products (x piece, w piece) (2, 0), (1, 1), (0, 2),
+    (1, 0), (0, 1), (0, 0), each exact in f32, summed into one f32 result in
+    that order.  The three left out, (1, 2), (2, 1), (2, 2), are below
+    2^-23 |x| |w| together."""
+    f32 = torch.float32
+    xs = [p_.to(f32) for p_ in split_bf16(x)]
+    ws = [p_.to(f32) for p_ in split_bf16(w)]
+    out = None
+    for pa, pb in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        term = xs[pa] @ ws[pb]
+        out = term if out is None else out + term
+    return out
+
+
 # ---------------------------------------------------------------- launch plan
 
 # The Hopper route's geometry (csrc/block_hopper.cuh and fused_block_bwd.cu

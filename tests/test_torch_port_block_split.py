@@ -9,6 +9,13 @@ bf16(x) rounds past bf16's largest value, the first piece is infinite.  The prod
 a bf16-exact weight (``split_matmul``: three exact bf16 products summed in
 f32, the tensor cores' route) matches the f32 product within K8's f32
 parameter-gradient limit, TOL_BLOCK_PARAM_REL[f32] = 1e-5 relative.
+
+K5/K6 multiply by the raw f32 weights, so both operands of an f32 x f32
+product are split and the kernels run the six significant piece products
+(``split_matmul6``).  Held against the float64 product at K5/K6's shapes
+(D 128: edge rows x We / Woe, and the wgrad's sum over the rows) within the
+bound of f32 summation plus the three products left out: |got - exact| <=
+(K + 8) 2^-24 (|x| @ |w|) element by element, K the summed length.
 """
 
 import numpy as np
@@ -16,7 +23,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from druggen_tpu_torch.ops.fused_block import split_bf16, split_matmul
+from druggen_tpu_torch.ops.fused_block import split_bf16, split_matmul, split_matmul6
 
 BF16_MAX = float(torch.finfo(torch.bfloat16).max)
 TOP = 2.0 ** 128 * (1 - 2.0 ** -9)     # bf16(x) rounds to infinity from here
@@ -70,3 +77,44 @@ def test_split_product_matches_the_f32_product(seed, shape, scale):
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     assert rel(got, ref) <= TOL_BLOCK_PARAM_REL_F32
     assert rel(got, exact) <= 1e-6
+
+
+# K5/K6's f32 x f32 products at D 128: (rows, K, columns) of t Woe / de We^T
+# over 2 graphs of 45 atoms, a ragged slab of 13 atoms, and the wgrad's
+# eraw^T de over the same rows (K = the rows)
+SIX_PIECE_SHAPES = [(2 * 45 * 45, 128, 128), (13 * 13, 128, 128), (128, 2 * 45 * 45, 128)]
+
+
+@settings(max_examples=12, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1), st.sampled_from(SIX_PIECE_SHAPES),
+       st.sampled_from([1e-3, 1.0, 1e3]))
+def test_six_piece_product_matches_float64(seed, shape, scale):
+    """x @ w with both f32, as the six significant piece products, against
+    the float64 product: element by element within (K + 8) 2^-24 (|x| @
+    |w|), and within the f32 product's own distance from it, twice over."""
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(m, k)) * scale).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32))
+    got = split_matmul6(x, w).double()
+    exact = x.double() @ w.double()
+    bound = (k + 8) * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
+    assert ((got - exact).abs() <= bound).all()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    assert rel(got, exact) <= 2 * max(rel((x @ w).double(), exact), 2.0 ** -24)
+
+
+def test_six_piece_product_needs_all_six():
+    """Leaving out the smallest kept product (x piece 2 x w piece 0) moves
+    the result past the bound for inputs whose third pieces are large: the
+    model holds the kernels to all six."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(128, 128)).astype(np.float32))
+    xs = [p_.float() for p_ in split_bf16(x)]
+    ws = [p_.float() for p_ in split_bf16(w)]
+    five = xs[1] @ ws[1] + xs[0] @ ws[2] + xs[1] @ ws[0] + xs[0] @ ws[1] + xs[0] @ ws[0]
+    exact = x.double() @ w.double()
+    err6 = (split_matmul6(x, w).double() - exact).abs().max().item()
+    err5 = (five.double() - exact).abs().max().item()
+    assert err5 > 4 * err6

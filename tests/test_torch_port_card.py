@@ -438,10 +438,13 @@ def test_full_width_training_step_runs_through_the_kernels():
 # 2.7e-5 on an H100, and a K6 that rounded e, de or its upstream gradient to
 # bf16 would read over 2e-3, test_torch_port_fused_attention.py).
 
+# bf16 at D 128 and N <= 64 takes the Hopper kernels, every other shape the
+# CUDA-core ones (fused_attention.hopper_route; both routes are held here).
 ATTN_SHAPES = [(torch.bfloat16, 8, 45, 128), (torch.float32, 8, 45, 128),
                (torch.bfloat16, 4, 45, 256), (torch.float32, 2, 45, 384),
                (torch.bfloat16, 2, 45, 512), (torch.bfloat16, 5, 13, 128),
-               (torch.float32, 3, 50, 128)]
+               (torch.float32, 3, 50, 128), (torch.bfloat16, 2, 70, 128),
+               (torch.bfloat16, 3, 64, 128), (torch.bfloat16, 4, 1, 128)]
 ATTN_GRADS = ("dq", "dk", "dv", "d_eraw", "dwe", "dbe", "dwoe", "dboe")
 
 
@@ -472,6 +475,7 @@ def test_attention_fwd_kernel_matches_plain(dtype, b, n, d):
     _need_card()
     from druggen_tpu_torch.ops import fused_attention as fa
 
+    assert fa.hopper_route(n, d, dtype) == (dtype == torch.bfloat16 and d == 128 and n <= 64)
     acts, params, _ = _attn_inputs(b, n, d, dtype, seed=n * d)
     before = fa.edge_attention_fwd.launches
     got = fa.edge_attention_fwd(*acts, *params, 8)
@@ -489,6 +493,7 @@ def test_attention_bwd_kernel_matches_plain(dtype, b, n, d):
     _need_card()
     from druggen_tpu_torch.ops import fused_attention as fa
 
+    assert fa.hopper_route(n, d, dtype) == (dtype == torch.bfloat16 and d == 128 and n <= 64)
     acts, params, (ge, gn) = _attn_inputs(b, n, d, dtype, seed=n * d + 1)
     t_res = fa.edge_attention_fwd_reference(*acts, *params, 8)[2]
     before = fa.edge_attention_bwd.launches
@@ -515,6 +520,23 @@ def test_attention_bwd_kernel_is_deterministic():
     second = fa.edge_attention_bwd(*acts, *params[:3], t_res, ge, gn, 8)
     for name, a, b in zip(ATTN_GRADS, first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_attention_launch_plan_matches_the_library():
+    """The Python plan's wgrad tiles and stage rows equal the libraries';
+    their shared memory fits one SM; the shapes above take both routes."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    plan = fa.launch_plan(128, 512, 45, 132)
+    lib = fa.library_plan()
+    assert plan.hopper
+    assert (lib["wgrad_tiles"], lib["wgrad_rows"]) == (plan.wgrad_tiles, fa.WGRAD_ROWS)
+    assert 0 < max(lib["fwd_smem"], lib["rows_smem"], lib["wgrad_smem"]) <= fa.SMEM_LIMIT
+    assert plan.chunk_rows % lib["wgrad_rows"] == 0
+    routes = {fa.hopper_route(n, d, dtype) for dtype, _, n, d in ATTN_SHAPES}
+    assert routes == {True, False}
 
 
 @pytest.mark.cuda
