@@ -12,7 +12,8 @@ exits non-zero without printing a result line:
 2. build    — compile every kernel source with nvcc (``-Xptxas -v``), one
                nvcc a (source, widths), all started together; each
                kernel's registers and spills, and the Hopper routes' launch
-               plans held against the libraries' shared memory and tiles.
+               plans held against the libraries' shared memory and tiles
+               (K1/K2, K5/K6, K7/K8 and K9's route).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
@@ -26,14 +27,17 @@ exits non-zero without printing a result line:
                (``fused_generator_logits``, the whole Generator) with the
                trained r2_scale weights on corpus one-hots at the serving
                shape and with random weights at N 13 / depth 2 and at dims
-               64 and 256; K3 (``edge_attention_v2_fwd``) and K4 (its
+               64 and 256, and on its Hopper route (bf16, dim 128) launch by
+               launch against the plain stages at the serving shape and at
+               N 13 / depth 2, twice for the same bits; K3 (``edge_attention_v2_fwd``) and K4 (its
                backward) at the training shape and on a ragged N, K4 twice
                for the same bits.
 4. serving  — the port's ``InferenceEngine.run()`` on the trained r2_scale
                Generator (bf16, fused edge tail), 4 batches of 512 graphs;
                the kernel launch counts of that run are checked.
 4u. serving with ``use_pallas`` — the same run through K9: one K9 launch a
-               forward and no K1.
+               forward and no K1; the forward's peak memory on K9's Hopper
+               route and through the generic kernels.
 4a. the v2 op — ``edge_modulated_attention`` forward and backward at the
                training shape through autograd: one K3 and one K4 launch.
 5. agree    — kernel path vs the plain bf16 path on one batch (labels);
@@ -42,16 +46,17 @@ exits non-zero without printing a result line:
 6. timing   — each kernel, its plain version and an eager yardstick, CUDA
                events, beside the card's bound (K1, K2, also at 128/512 and
                on the split path at 512/1536;
-               K5, K6, K7, K8; K9 beside slice 1's forward, K3, K4); K2's
-               three, K6's five and K8's seven launches one by one
-               (torch.profiler); beside K1, K2, K5, K6, K7 and K8 the same
+               K5, K6, K7, K8; K9 beside slice 1's forward and the generic
+               kernels, K3, K4); K2's three, K6's five and K8's seven
+               launches one by one (torch.profiler); beside K1, K2, K5, K6, K7 and K8 the same
                products through torch.matmul, a labelled reference (2 for
                K1, 6 for K2; 2 for K5 and 5 for K6 in f32; 4 for K7 and 12
                for K8, bf16 where both operands are exact in bf16, else f32
                with TF32 off).
 7. profile  — one serving forward under torch.profiler, without and with
-               ``use_pallas``: device time by kernel and the card's idle
-               share of the forward.
+               ``use_pallas``: device time by kernel, the card's idle share
+               of the forward and its peak memory; K9's node, attention and
+               tail launches from that profile.
 8. training — the port's ``Trainer`` (what ``python -m
                druggen_tpu_torch.train`` runs) at the full r2_scale config
                (bf16, fused_mlp + fused_critic, batch 512) for one epoch of
@@ -196,6 +201,9 @@ KERNEL_BUILDS = (
 # K9 at the published widths, at dim 64 with mlp_ratio 2 and at dim 256
 K9_WIDTHS = ((DIM, HIDDEN), (NARROW_DIM, 2 * NARROW_DIM), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN))
 KERNEL_BUILDS += tuple(("fused_generator", {"KERNEL_C": c, "KERNEL_H": h}) for c, h in K9_WIDTHS)
+# K9's Hopper route (bf16, dim 128, N <= 64): its edge-attention and
+# edge-tail launches, at the published widths
+KERNEL_BUILDS += (("fused_generator_hopper", {"KERNEL_C": DIM, "KERNEL_H": HIDDEN}),)
 GRAD_NAMES = ("dg1", "dbl1", "dw1", "db1", "dw2", "db2", "dg2", "dbl2")
 # K5/K6: the fused edge attention.  8 heads; the training shape, D 256 and
 # a ragged N.  Outputs against the plain version, compared in f32: bf16
@@ -271,6 +279,18 @@ def phase(name: str):
     print(f"== {name}", flush=True)
     yield
     print(f"== {name} done in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+@contextlib.contextmanager
+def generic_kernels(fg):
+    """K9 through the generic kernels (``fused_generator.cu``'s edge pass) at
+    every shape, for comparison with the Hopper route in the same run."""
+    route = fg.hopper_route
+    fg.hopper_route = lambda *args: False
+    try:
+        yield
+    finally:
+        fg.hopper_route = route
 
 
 def nvidia_smi_line() -> str:
@@ -350,6 +370,10 @@ K8_LAUNCHES = {"fwd attn": "block_bwd_fwd_attn", "fwd mlp": "block_bwd_fwd_mlp",
 # CUDA-core route's are rows, deraw, wgrad and reduce (attn_bwd_*_kernel)
 K6_LAUNCHES = {"stats": "attn_bwd_stats", "rows": "attn_bwd_rows", "node": "attn_bwd_node",
                "wgrad": "attn_bwd_wgrad", "reduce": "attn_bwd_reduce"}
+# K9's launches on the Hopper route: a node pass a depth and one after the
+# last, and each depth's edge attention and edge tail (the keys begin the
+# labels of fused_generator.route_by_launch)
+K9_LAUNCHES = {"node": "gen_node_kernel", "attention": "gen_attn_wgmma", "tail": "gen_tail_wgmma"}
 
 
 def launch_split(fn, patterns: dict, required=None) -> dict:
@@ -820,6 +844,73 @@ def generator_bound(b: int, n: int, gw, dtype) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def generator_launch_bounds(b: int, n: int, gw) -> dict:
+    """Least milliseconds of each kind of K9's Hopper-route launches, summed
+    over the depths, bf16 (the rule of generator_bound, launch by launch):
+    the edge attention reads z_e (depth 0) or the rows, and q, k, v, and
+    writes s and agg, against its input MLP (depth 0), e and out_e; the
+    edge tail reads s and writes the rows or the logits, against MLP2 and
+    the readout; the node passes read z_n and write the node logits (their
+    [B, N, C] traffic is L2-sized and left out), against the node stream's
+    products."""
+    c, h, m_dim, b_dim, depth = gw.dim, gw.hidden, gw.m_dim, gw.b_dim, gw.depth
+    rows, atoms = b * n * n, b * n
+    rate = PEAK_FLOPS_S[torch.bfloat16]
+    parts = {
+        "node": (2 * atoms * (m_dim * 64 + 64 * c + depth * (4 * c * c + 2 * c * h) + c * m_dim),
+                 2 * atoms * 2 * m_dim),
+        "attention": (2 * rows * (b_dim * 64 + 64 * c + depth * 2 * c * c),
+                      2 * (rows * b_dim + (2 * depth - 1) * rows * c + depth * 4 * atoms * c)),
+        "tail": (2 * rows * (depth * 2 * c * h + c * b_dim),
+                 2 * ((2 * depth - 1) * rows * c + rows * b_dim)),
+    }
+    out = {}
+    for key, (ops, nbytes) in parts.items():
+        t_ops, t_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        out[key] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def check_generator_launches(fg, gw, z_e, z_n, label: str) -> dict:
+    """K9's Hopper route launch by launch, each against its plain stage on
+    the kernel's own inputs (TOL_K9, bf16); then the whole forward twice for
+    the same bits, equal to the launch-by-launch run.  Returns the largest
+    error of each kind of launch."""
+    dt = torch.bfloat16
+    z_e, z_n = z_e.to(dt), z_n.to(dt)
+    b, n = z_e.shape[:2]
+    if not fg.hopper_route(n, gw.dim, gw.hidden, dt, gw.b_dim):
+        raise AssertionError(f"K9 {label}: N {n}, dim {gw.dim}, hidden {gw.hidden} is not on "
+                             f"the Hopper route")
+    atol, rtol = TOL_K9[dt]
+    errs = {key: 0.0 for key in K9_LAUNCHES}
+
+    def held(what, got, ref):
+        torch.cuda.synchronize()
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((err <= atol + rtol * ref.abs()).all())
+        if not ok or err.mean().item() > TOL_BF16_MEAN:
+            raise AssertionError(f"K9 {label}, {what}: max |kernel - stage| "
+                                 f"{err.max().item()}, mean {err.mean().item()}")
+        key = next(k for k in K9_LAUNCHES if what.startswith(k))
+        errs[key] = max(errs[key], err.max().item())
+
+    out_n, out_e = fg.route_by_launch(gw, z_e, z_n, held, heads=HEADS)
+    got = fg.fused_generator_logits(gw, z_e, z_n, heads=HEADS)
+    again = fg.fused_generator_logits(gw, z_e, z_n, heads=HEADS)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g_, a_) and torch.equal(g_, l_)
+               for g_, a_, l_ in zip(got, again, (out_n, out_e))):
+        raise AssertionError(f"K9 {label}: the forward twice, or launch by launch, gave "
+                             f"other bits")
+    print(f"   K9 {label} B {b} N {n} depth {gw.depth}, Hopper route by launch against the "
+          f"plain stages: max |kernel - stage| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + "; the forward twice and launch by "
+          f"launch the same bits", flush=True)
+    return errs
+
+
 def check_v2_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = False) -> dict:
     """K3 on edge_pre and node_agg and K4 on dq, dk, dv, de, each against its
     plain version on the same inputs (TOL_ATTN); ``twice``: K4 run again
@@ -878,13 +969,16 @@ def v2_bounds(b: int, n: int, d: int, dtype) -> tuple:
 
 def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
     """One call of ``fn`` (a serving forward) under torch.profiler: its
-    CUDA-event time, device time by kernel and the card's idle share."""
+    CUDA-event time, device time by kernel, the card's idle share and the
+    call's peak device memory."""
     fwd_ms = cuda_ms(fn, 5)
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -892,12 +986,12 @@ def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
     busy = sum(k[1] for k in kernels)
     print(f"   serving forward, batch {SERVE_BATCH}, {label}, on {name} ({smi_line}): "
           f"{fwd_ms:.3f} ms (CUDA events); kernels {busy:.3f} ms; idle share "
-          f"{max(0.0, 1 - busy / fwd_ms):.3f}")
+          f"{max(0.0, 1 - busy / fwd_ms):.3f}; peak memory {peak:.3f} GiB")
     for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
         print(f"   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{count:<3d} {key[:90]}")
     if not kernels:
         print("   the profiler recorded no device time")
-    return {"forward_ms": fwd_ms, "busy_ms": busy}
+    return {"forward_ms": fwd_ms, "busy_ms": busy, "peak_gib": peak, "kernels": kernels}
 
 
 def snapshot(opts) -> list:
@@ -1490,6 +1584,24 @@ def main() -> int:
                   f"(m_dim 8, b_dim 5), the larger of its node and edge blocks: bf16 "
                   f"{lib.fused_generator_smem_bytes(N_ATOMS, 8, 5, 1)} B, f32 "
                   f"{lib.fused_generator_smem_bytes(N_ATOMS, 8, 5, 0)} B", flush=True)
+        gplan = fg.launch_plan(DIM, HIDDEN, SERVE_BATCH, N_ATOMS, 1, num_sms(0))
+        glib = fg.library_plan(DIM, HIDDEN, N_ATOMS, 8)
+        if (not glib["route"] or not fg.hopper_route(N_ATOMS, DIM, HIDDEN, torch.bfloat16, 5)
+                or glib["tail_smem"] <= launch_plan(DIM, HIDDEN, ROWS, num_sms(0)).fwd_smem
+                or max(glib["node_smem"], glib["attn_smem"], glib["tail_smem"])
+                > fg.SMEM_LIMIT):
+            raise AssertionError(f"fused_generator Hopper route: launch_plan / hopper_route "
+                                 f"disagree with the library: {gplan} vs {glib}")
+        print(f"   fused_generator C {DIM} H {HIDDEN} bf16, Hopper route (the libraries' "
+              f"shared memory): node pass {glib['node_smem']} B ({gplan.node_blocks} blocks), "
+              f"edge attention {glib['attn_smem']} B (grid {gplan.attn_grid}, two warpgroups, "
+              f"64-row slab tiles, {1 - N_ATOMS / fg.TILE_ROWS:.3f} of their rows padding at N "
+              f"{N_ATOMS}), edge tail {glib['tail_smem']} B (K1's layout and the edge "
+              f"readout's weights: grid {gplan.tail_grid}, "
+              f"{gplan.tiles} flat 64-row tiles); the plan's {gplan.device_launches} device "
+              f"launches a forward at depth 1 (phase 7 counts them); scratch at B {SERVE_BATCH}: node "
+              f"{gplan.node_scratch_bytes / 2 ** 20:.1f} MiB, edge "
+              f"{gplan.edge_scratch_bytes / 2 ** 30:.3f} GiB", flush=True)
 
     counted = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln,
                "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd,
@@ -1595,6 +1707,22 @@ def main() -> int:
             for dtype in (torch.bfloat16, torch.float32):
                 check_generator_kernel(fg, gw, ze_r, zn_r, dtype, "random", labels_held=False)
         k9 = k9_checks[torch.bfloat16]
+        # the generic bf16 kernels at the published width, which serve N > 64
+        # and b_dim > 7: held at the serving shape as before the route
+        with generic_kernels(fg):
+            check_generator_kernel(fg, trained, z_e, z_n, torch.bfloat16,
+                                   "trained r2_scale, corpus, generic kernels",
+                                   labels_held=True)
+        # the Hopper route's launches, each against its plain stage: the
+        # serving shape (trained weights) and K9_SMALL (random, depth 2)
+        k9_launch_errs = check_generator_launches(fg, trained, z_e, z_n,
+                                                  "trained r2_scale, corpus")
+        small = fg.GeneratorWeights.of(Generator(
+            act="relu", vertexes=K9_SMALL[1], edges=vocab.b_dim, nodes=vocab.m_dim,
+            dropout=0.0, dim=DIM, depth=K9_SMALL[2], heads=HEADS, mlp_ratio=HIDDEN // DIM,
+            generator=torch.Generator().manual_seed(SEED + 1)))
+        check_generator_launches(fg, small, *symmetric_onehots(
+            K9_SMALL[0], K9_SMALL[1], vocab.m_dim, vocab.b_dim, gen), "random")
         torch.cuda.empty_cache()
         v2_checks = {}
         for b, n, d in V2_SHAPES:
@@ -1665,7 +1793,8 @@ def main() -> int:
         launches_p = {key: fn.launches for key, fn in counted_all.items()}
         n_batches = len(engine_p.timings)
         print(f"   launches: {launches_p} over {n_batches} batches (expected one K9 a "
-              f"forward, {2 * cfg.depth + 1} device launches each, and no other kernel)")
+              f"forward, {3 * cfg.depth + 1} device launches each on the Hopper route, and no "
+              f"other kernel)")
         if n_batches != SERVE_BATCHES or launches_p["fused_generator_logits"] != n_batches:
             raise AssertionError("the use_pallas serving run did not go through K9 once "
                                  "per batch")
@@ -1688,6 +1817,26 @@ def main() -> int:
               f"end with host decode "
               f"{SERVE_BATCH * n_batches / (sum(fwd_p) + sum(dec_p)):.1f} molecules/s "
               f"(all batches)", flush=True)
+        # peak device memory of one use_pallas forward, on the Hopper route and
+        # through the generic kernels (the route adds the [B N N, C] edge buffer)
+        x_p, a_p = next(iter(BatchIterator(engine_p.data, SERVE_BATCH, seed=cfg.seed)))
+        peaks = {}
+        for label, ctx in (("route", contextlib.nullcontext()),
+                           ("generic", generic_kernels(fg))):
+            with ctx:
+                engine_p.forward(a_p, x_p)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                engine_p.forward(a_p, x_p)
+                torch.cuda.synchronize()
+                peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        serve_peak_rise = peaks["route"] - peaks["generic"]
+        print(f"   use_pallas forward peak memory (max_memory_allocated, batch {SERVE_BATCH}): "
+              f"Hopper route {peaks['route']:.3f} GiB, the generic kernels "
+              f"{peaks['generic']:.3f} GiB; rise {serve_peak_rise:.3f} GiB", flush=True)
+        if serve_peak_rise > 0.3:
+            raise AssertionError(f"the Hopper route raises the use_pallas forward's peak memory "
+                                 f"by {serve_peak_rise:.3f} GiB > 0.3")
 
     with phase("4a the v2 attention op"):
         acts, _, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
@@ -2041,30 +2190,36 @@ def main() -> int:
               f"TF32 off; the same shapes)", flush=True)
 
         # K9 at the serving shape, bf16: the trained weights on the corpus
-        # one-hots of phase 3.  Yardstick: slice 1's forward on the same
+        # one-hots of phase 3, on the Hopper route; beside it the generic
+        # kernels in this tree.  Yardstick: slice 1's forward on the same
         # one-hots, the eager bf16 Generator with K1 (the engine's G); no one
         # PyTorch call computes the Generator
         z_e_b, z_n_b = z_e.bfloat16(), z_n.bfloat16()
+
+        def k9_call():
+            fg.fused_generator_logits(trained, z_e_b, z_n_b, heads=HEADS)
         with torch.inference_mode():
-            k9_a = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e_b, z_n_b,
-                                                             heads=HEADS), 20)
+            k9_a = cuda_ms(k9_call, 20)
+            with generic_kernels(fg):
+                k9_generic = cuda_ms(k9_call, 20)
             k9_p = cuda_ms(lambda: fg.fused_generator_logits_reference(
                 trained.weights, trained.depth, z_e_b, z_n_b, heads=HEADS), 3, warmup=1)
             s1_ms = cuda_ms(lambda: engine.G(z_e_b, z_n_b), 20)
-            k9_b = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e_b, z_n_b,
-                                                             heads=HEADS), 20)
+            k9_b = cuda_ms(k9_call, 20)
             k9_f32 = cuda_ms(lambda: fg.fused_generator_logits(trained, z_e, z_n, heads=HEADS),
                              3, warmup=1)
         k9_ms = (k9_a + k9_b) / 2
         bound9, by9 = generator_bound(SERVE_BATCH, N_ATOMS, trained, torch.bfloat16)
         bound9_32, by9_32 = generator_bound(SERVE_BATCH, N_ATOMS, trained, torch.float32)
+        bounds9 = generator_launch_bounds(SERVE_BATCH, N_ATOMS, trained)
         print(f"   fused_generator_logits (K9) bf16 B {SERVE_BATCH} N {N_ATOMS} dim {DIM} "
               f"H {HIDDEN} depth {trained.depth} on {name} ({smi_line}):")
-        print(f"   kernel {k9_ms:.4f} ms (runs {k9_a:.4f}, {k9_b:.4f}; {2 * trained.depth + 1} "
-              f"device launches a call); plain {k9_p:.4f} ms; slice 1's forward (eager bf16 "
+        print(f"   kernel {k9_ms:.4f} ms (runs {k9_a:.4f}, {k9_b:.4f}; Hopper route, "
+              f"the plan's {gplan.device_launches} device launches a call); the generic kernels in this "
+              f"tree {k9_generic:.4f} ms; plain {k9_p:.4f} ms; slice 1's forward (eager bf16 "
               f"Generator with K1) {s1_ms:.4f} ms; bound {bound9:.4f} ms ({by9}); kernel at "
-              f"{100 * bound9 / k9_ms:.1f}% of the bound; f32 twin {k9_f32:.4f} ms (bound "
-              f"{bound9_32:.4f} ms, {by9_32}, 3xTF32)", flush=True)
+              f"{100 * bound9 / k9_ms:.1f}% of the bound; f32 twin (the generic kernels) "
+              f"{k9_f32:.4f} ms (bound {bound9_32:.4f} ms, {by9_32}, 3xTF32)", flush=True)
         torch.cuda.empty_cache()
 
         # K3 / K4 at the training shape, bf16.  Yardstick: the eager
@@ -2109,6 +2264,30 @@ def main() -> int:
                                   name, smi_line)
         prof_k9 = profile_forward(lambda: engine_p.forward(a, x), "bf16, use_pallas (K9)",
                                   name, smi_line)
+        # K9 by launch, from the profile of its forward (a profiler session
+        # of its own in phase 6 would slow the host for phase 7's timings)
+        k9_split = {label: sum(ms for key, ms, _ in prof_k9["kernels"] if pat in key)
+                    for label, pat in K9_LAUNCHES.items()}
+        if not all(k9_split.values()):
+            raise AssertionError(f"a K9 launch is missing from the use_pallas forward's "
+                                 f"profile: {k9_split}")
+        # the forward's device launches, counted by the profiler: a node
+        # pass a depth and one after the last, an attention and a tail
+        # launch a depth, and none of the generic edge kernel
+        k9_counts = {label: sum(n for key, _, n in prof_k9["kernels"] if pat in key)
+                     for label, pat in {**K9_LAUNCHES, "generic edge": "gen_edge_kernel"}.items()}
+        depth9 = engine_p.k9_weights.depth
+        want = {"node": depth9 + 1, "attention": depth9, "tail": depth9, "generic edge": 0}
+        if k9_counts != want:
+            raise AssertionError(f"the use_pallas forward's K9 device launches {k9_counts}, "
+                                 f"expected {want}")
+        k9_device_launches = sum(k9_counts.values())
+        print(f"   K9's device launches in that forward (profiler counts): {k9_counts}, "
+              f"{k9_device_launches} in all", flush=True)
+        print("   K9 by launch in that forward (bound of the launches, summed over the "
+              "depths): " + ", ".join(
+                  f"{k} {v:.4f} ms (bound {bounds9[k][0]:.4f}, {bounds9[k][1]})"
+                  for k, v in k9_split.items()), flush=True)
 
     train = training_phases(name, smi_line, counted)
 
@@ -2276,23 +2455,30 @@ def main() -> int:
     }, {
         "name": "fused_generator_logits",
         "route": "cuda",
-        "source": "druggen_tpu_torch/ops/csrc/fused_generator.cu",
+        "source": "druggen_tpu_torch/ops/csrc/fused_generator_hopper.cu",
+        "sources": ["druggen_tpu_torch/ops/csrc/fused_generator_hopper.cu",
+                    "druggen_tpu_torch/ops/csrc/fused_generator.cu"],
         "replaces": "druggen_tpu/ops/fused_generator.py:121",
         "launches": launches_p["fused_generator_logits"],
         "launches_by_path": {"serving": launches["fused_generator_logits"],
                              "serving_use_pallas": launches_p["fused_generator_logits"]},
-        "device_launches_per_call": 2 * trained.depth + 1,
+        "device_launches_per_call": k9_device_launches,
         "max_abs_err": k9["max_abs_err"],
+        "max_abs_err_by_launch": k9_launch_errs,
         "label_agreement": k9["label_agreement"],
         "ms": k9_ms,
+        "ms_by_launch": k9_split,
         "plain_ms": k9_p,
         "bound_ms": bound9,
         "bound_by": by9,
+        "bound_by_launch_ms": {k: v[0] for k, v in bounds9.items()},
         "library_ms": None,
+        "generic_kernels_ms": k9_generic,
         "slice1_forward_ms": s1_ms,
         "f32_ms": k9_f32,
         "serving_forward_ms": {"slice1": prof_k1["forward_ms"],
                                "use_pallas": prof_k9["forward_ms"]},
+        "use_pallas_peak_rise_gib": serve_peak_rise,
     }]}
     print(json.dumps(record))
     print(nvidia_smi_line())

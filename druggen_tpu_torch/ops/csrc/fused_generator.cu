@@ -48,7 +48,11 @@
 // k and v of every atom are needed by every query atom's block, and the next
 // depth's k and v need every atom's aggregation: so a depth is one edge
 // launch between two node launches, and a forward is 2 * depth + 1 launches
-// from one call (the wrapper counts one a forward).  Products: bf16 WMMA
+// from one call (the wrapper counts one a forward).  On the bf16 Hopper
+// route (ops/fused_generator.py hopper_route: dim 128, N <= 64) the edge
+// pass is fused_generator_hopper.cu's two launches instead, and the node
+// pass runs alone (fused_generator_node_*); this file's edge kernel serves
+// f32, the other widths and N > 64.  Products: bf16 WMMA
 // (bf16 in, f32 accumulate), each warp a 16 x 16 output tile at a time,
 // the A operand from shared memory and the weight fragments from device
 // memory, where all the weights (~0.7 MB in bf16 at 128/384) stay resident
@@ -69,42 +73,19 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "gen_weights.cuh"
 #include "tail_common.cuh"
 
 namespace {
 
 using namespace tailk;
+using namespace genw;
 using namespace nvcuda;
 
 constexpr int HID_IN = 64;         // hidden width of the two input MLPs
 constexpr int LDI = HID_IN + 8;    // its rows in shared memory
 constexpr int LDC = CP + 8;        // a C-wide stream row in shared memory
 static_assert(C % 16 == 0, "the stream width must be a multiple of 16");
-
-// The packed parameters, in the order of fused_generator.py's _MATS_* and
-// _VECS_* tuples: the input MLPs, then each depth's, then the readouts.
-constexpr int MAT_NF1 = 0, MAT_NF2 = 1, MAT_EF1 = 2, MAT_EF2 = 3, MAT_BLOCK = 4;
-constexpr int MATS_PER_BLOCK = 10;
-enum BlockMat { W_Q, W_K, W_V, W_E, W_OE, W_ON, W_M1, W_M2, W_P1, W_P2 };
-constexpr int VEC_NF1 = 0, VEC_NF2 = 1, VEC_EF1 = 2, VEC_EF2 = 3, VEC_BLOCK = 4;
-constexpr int VECS_PER_BLOCK = 20;
-enum BlockVec { V_LN1S, V_LN1B, V_Q, V_K, V_V, V_E, V_OE, V_ON, V_LN3S, V_LN3B, V_LN4S, V_LN4B,
-                V_M1, V_M2, V_LN5S, V_LN5B, V_P1, V_P2, V_LN6S, V_LN6B };
-
-// Where the kernels find the parameters: matrices W^T [pad16(out)][pad16(in)]
-// in T at wts + woff[id]; vectors (f32 holding T values) at vecs + voff[id].
-struct Weights {
-  const void* wts;
-  const float* vecs;
-  const long long* woff;
-  const long long* voff;
-};
-
-template <typename T>
-__device__ __forceinline__ const T* mat(const Weights& w, int id) {
-  return static_cast<const T*>(w.wts) + w.woff[id];
-}
-__device__ __forceinline__ const float* vec(const Weights& w, int id) { return w.vecs + w.voff[id]; }
 
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_float(from_float<T>(v)); }
@@ -421,6 +402,21 @@ size_t node_smem(int n, int m_dim) { return Layout<T>(pad16(n), pad16(m_dim)).to
 template <typename T>
 size_t edge_smem(int n, int b_dim) { return Layout<T>(pad16(n), pad16(b_dim)).total; }
 
+// Node pass d of 0..depth: one block per graph.
+template <typename T>
+cudaError_t launch_node(const void* zn, const Weights& w, void* out_n, void* x1, void* q, void* k,
+                        void* v, void* agg, long long batch, int n, int m_dim, int depth, int d,
+                        cudaStream_t st) {
+  const size_t smem = node_smem<T>(n, m_dim);
+  cudaError_t err = cudaFuncSetAttribute(gen_node_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  gen_node_kernel<T><<<unsigned(batch), THREADS, smem, st>>>(
+      static_cast<const T*>(zn), w, static_cast<T*>(x1), static_cast<T*>(q), static_cast<T*>(k),
+      static_cast<T*>(v), static_cast<const T*>(agg), static_cast<T*>(out_n), n, m_dim, depth, d);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* zn, const void* ze, const void* wts, const void* vecs, const void* woff,
            const void* voff, void* out_n, void* out_e, void* x1, void* q, void* k, void* v,
@@ -430,29 +426,19 @@ int launch(const void* zn, const void* ze, const void* wts, const void* vecs, co
     return int(cudaErrorInvalidValue);
   if (batch == 0) return int(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem_n = node_smem<T>(n, m_dim), smem_e = edge_smem<T>(n, b_dim);
-  cudaError_t err = cudaFuncSetAttribute(gen_node_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_n));
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(gen_edge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem_e));
+  const size_t smem_e = edge_smem<T>(n, b_dim);
+  cudaError_t err = cudaFuncSetAttribute(gen_edge_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_e));
   if (err != cudaSuccess) return int(err);
   const Weights w{wts, static_cast<const float*>(vecs), static_cast<const long long*>(woff),
                   static_cast<const long long*>(voff)};
-  T* x1g = static_cast<T*>(x1);
-  T* qg = static_cast<T*>(q);
-  T* kg = static_cast<T*>(k);
-  T* vg = static_cast<T*>(v);
-  T* aggg = static_cast<T*>(agg);
   for (int d = 0; d <= depth; ++d) {
-    gen_node_kernel<T><<<unsigned(batch), THREADS, smem_n, st>>>(
-        static_cast<const T*>(zn), w, x1g, qg, kg, vg, aggg, static_cast<T*>(out_n), n, m_dim,
-        depth, d);
-    err = cudaGetLastError();
+    err = launch_node<T>(zn, w, out_n, x1, q, k, v, agg, batch, n, m_dim, depth, d, st);
     if (err != cudaSuccess) return int(err);
     if (d == depth) break;
     gen_edge_kernel<T><<<unsigned(batch * n), THREADS, smem_e, st>>>(
-        static_cast<const T*>(ze), w, qg, kg, vg, aggg, static_cast<T*>(ys),
+        static_cast<const T*>(ze), w, static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(agg), static_cast<T*>(ys),
         static_cast<T*>(out_e), n, b_dim, depth, d, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
@@ -483,9 +469,31 @@ int launch(const void* zn, const void* ze, const void* wts, const void* vecs, co
 FUSED_GENERATOR(fused_generator_bf16, __nv_bfloat16)
 FUSED_GENERATOR(fused_generator_f32, float)
 
+// Node pass d of 0..depth alone, bf16 (the Hopper route of
+// ops/fused_generator.py runs it between its edge launches): the arguments
+// of fused_generator_bf16 that it reads.  One launch on `stream`.
+extern "C" int fused_generator_node_bf16(const void* zn, const void* wts, const void* vecs,
+                                         const void* woff, const void* voff, void* out_n,
+                                         void* x1, void* q, void* k, void* v, void* agg,
+                                         long long batch, int n, int m_dim, int c, int h,
+                                         int depth, int d, void* stream) {
+  if (batch < 0 || n <= 0 || m_dim <= 0 || c != C || h != H || depth <= 0 || d < 0 || d > depth)
+    return int(cudaErrorInvalidValue);
+  if (batch == 0) return int(cudaSuccess);
+  const Weights w{wts, static_cast<const float*>(vecs), static_cast<const long long*>(woff),
+                  static_cast<const long long*>(voff)};
+  return int(launch_node<__nv_bfloat16>(zn, w, out_n, x1, q, k, v, agg, batch, n, m_dim, depth,
+                                        d, static_cast<cudaStream_t>(stream)));
+}
+
 // Dynamic shared memory of the larger of the two kernels' blocks.
 extern "C" long long fused_generator_smem_bytes(int n, int m_dim, int b_dim, int bf16) {
   const size_t a = bf16 ? node_smem<__nv_bfloat16>(n, m_dim) : node_smem<float>(n, m_dim);
   const size_t b = bf16 ? edge_smem<__nv_bfloat16>(n, b_dim) : edge_smem<float>(n, b_dim);
   return (long long)(a > b ? a : b);
+}
+
+// Dynamic shared memory of a bf16 node-pass block alone.
+extern "C" long long fused_generator_node_smem_bytes(int n, int m_dim) {
+  return (long long)node_smem<__nv_bfloat16>(n, m_dim);
 }

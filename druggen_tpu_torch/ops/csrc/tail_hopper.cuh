@@ -1,7 +1,9 @@
 // Hopper building blocks of the bf16 edge-tail kernels K1 (fused_mlp.cu) and
 // K2 (fused_mlp_bwd.cu): the tile plan, inline PTX for wgmma, TMA and
-// mbarriers, the shared-memory layouts the products read, and the
-// LayerNorm helpers that work in wgmma's accumulator layout.
+// mbarriers, the shared-memory layouts the products read, the LayerNorm
+// helpers that work in wgmma's accumulator layout, and the forward tile
+// routine (ftile::tail_fwd_tiles) that K1 and K9's edge tail
+// (fused_generator_hopper.cu) run, each with its own rounding policy.
 //
 // The tile plan (mirrored by ops/fused_mlp.py::launch_plan, which the CPU
 // tests check; the kernels refuse a launch whose shared memory disagrees):
@@ -603,6 +605,273 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map, const uint8_t
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
+
+// ---------------------------------------------------------------------------
+// The forward tile routine: K1's kernel body (fused_mlp.cu) and K9's edge
+// tail (fused_generator_hopper.cu), one persistent block an SM over 64-row
+// tiles of [rows, C]
+// ---------------------------------------------------------------------------
+#if TAIL_FUSED
+namespace ftile {
+
+struct Params {
+  const float* g1;
+  const float* bl1;
+  const float* b1;  // padded to HP
+  const float* b2;
+  const float* g2;
+  const float* bl2;
+  const __nv_bfloat16* w1t;  // W1^T [HP][CP]
+  const __nv_bfloat16* w2t;  // W2^T [CP][HP]
+  __nv_bfloat16* out;
+  long long rows;
+};
+
+// Shared memory, bytes from the aligned base: [staged weights] [per
+// warpgroup: s tile (mode B: and the x operand)] [per warpgroup: weight
+// ring] [mbarriers].
+constexpr size_t STAGED = 2 * W_BYTES;
+constexpr size_t BUFS = kModeA ? TILE_BYTES : 2 * TILE_BYTES;
+constexpr bool kStage = STAGED + NWG * BUFS + 256 + ALIGN_SLACK <= SMEM_MAX;
+constexpr int RING = kStage ? 0 : ring_stages(NWG * BUFS);
+constexpr int RINGS = RING > 0 ? RING : 1;  // RING as a divisor (unused when staged)
+constexpr size_t OFF_BUFS = kStage ? STAGED : 0;
+constexpr size_t OFF_RING = OFF_BUFS + NWG * BUFS;
+constexpr size_t OFF_BAR = OFF_RING + size_t(NWG) * RING * CHUNK_BYTES;
+constexpr int NBAR = NWG * (1 + RING);
+constexpr size_t SMEM = OFF_BAR + size_t(NBAR) * 8 + ALIGN_SLACK;
+static_assert(kStage || RING >= 1, "no room for the weight ring");
+static_assert(SMEM <= SMEM_MAX, "shared memory over the limit");
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// K1's output: the tile's rows of out [rows, C] (bf16), 16 bytes a store.
+struct RowStore {
+  __nv_bfloat16* out;
+  long long rows;
+  __device__ __forceinline__ void operator()(const uint32_t (&o)[JC], long long row, int,
+                                             const Lane& ln) const {
+    uint4 og[JC / 4];
+    quad_transpose(o, og);  // 16-byte stores
+    if (row < rows) {
+#pragma unroll
+      for (int g = 0; g < JC / 4; ++g) {
+        const int c = 8 * (4 * g + ln.q);
+        if (c_ok(c)) *reinterpret_cast<uint4*>(out + row * C + c) = og[g];
+      }
+    }
+  }
+};
+
+// Every 64-row tile of s [rows, C] through
+//     x = LN1(s); h = relu(round(x) W1 + b1); m = round(h) W2 + b2
+//     out = round(LN2(x + m))                                (kRound false: K1)
+//     out = round(LN2(round(round(x) + round(m))))           (kRound true: K9)
+// and out(o, row, half, ln) for each of the thread's two rows (o: its
+// columns of row ln.row(half) as packed bf16 pairs; every thread of the
+// warpgroup calls it, half 0 then half 1).  K9's
+// other rounding points are K1's: fc1's A operand is round(x) in both, and
+// relu(round(z)) = round(relu(z)) is how h is rounded.  The persistent
+// block's warpgroups take tiles blockIdx.x * NWG + wg, then every
+// gridDim.x * NWG-th.
+template <bool kRound, typename Out>
+__device__ __forceinline__ void tail_fwd_tiles(const CUtensorMap* s_map, const CUtensorMap* w1_map,
+                                               const CUtensorMap* w2_map, const Params& p,
+                                               const Out& out) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int wg = threadIdx.x >> 7;
+  const Lane ln(threadIdx.x & 127);
+  const bool leader = ln.t == 0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* full_s = bars + wg;
+  uint64_t* ring_full = bars + NWG + wg * RING;
+  uint8_t* s_buf = smem + OFF_BUFS + wg * BUFS;
+  uint8_t* x_buf = kModeA ? s_buf : s_buf + TILE_BYTES;
+  uint8_t* ring = smem + OFF_RING + size_t(wg) * RING * CHUNK_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBAR; ++i) mbar_init(bars + i, 1);
+    fence_barrier_init();
+  }
+  if constexpr (kStage) {
+    stage_weights(smem, smem + W_BYTES, p.w1t, p.w2t);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  const long long n_tiles = (p.rows + BM - 1) / BM;
+  const long long stride = (long long)gridDim.x * NWG;
+  const long long first = (long long)blockIdx.x * NWG + wg;
+  const long long my_tiles = first < n_tiles ? (n_tiles - 1 - first) / stride + 1 : 0;
+  const long long chunks = my_tiles * NJ;  // ring loads this warpgroup consumes
+  if (leader && my_tiles > 0) {
+    load_tile(s_buf, s_map, full_s, first);
+    if constexpr (!kStage)
+      for (int n = 0; n < RING && n < chunks; ++n)
+        load_chunk(ring + size_t(n) * CHUNK_BYTES, ring_full + n, w1_map, w2_map, n % NJ);
+  }
+
+  uint32_t it = 0;
+  long long n = 0;  // ring position
+  for (long long tile = first; tile < n_tiles; tile += stride, ++it) {
+    mbar_wait(full_s, it & 1);
+    // ---- 1. s, LN1 statistics, the x operand
+    float mu[2], rstd[2];
+    uint32_t sp[JC][2];       // mode A: s as packed bf16 pairs
+    uint32_t xa[CP / 16][4];  // mode A: round(x), the A operand of fc1
+    {
+      float v[4 * JC];
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t raw =
+              *reinterpret_cast<const uint32_t*>(s_buf + tile_off(ln.row(half), j, ln.q));
+          if constexpr (kModeA) sp[j][half] = raw;
+          const float2 f = unpack_bf16(raw);
+          v[4 * j + 2 * half] = f.x;
+          v[4 * j + 2 * half + 1] = f.y;
+        }
+      row_stats(v, ln, mu, rstd);
+      if constexpr (kModeA) {  // the buffer is free: bring the next tile
+        wg_sync(1 + wg);
+        if (leader && tile + stride < n_tiles) load_tile(s_buf, s_map, full_s, tile + stride);
+      }
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = ln.col(j, e);
+          const float g = c_ok(c) ? __ldg(p.g1 + c) : 0.0f;
+          const float b = c_ok(c) ? __ldg(p.bl1 + c) : 0.0f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            v[4 * j + 2 * half + e] = ln_apply(v[4 * j + 2 * half + e], mu[half], rstd[half], g, b);
+        }
+      if constexpr (kModeA) {
+        to_a_regs(v, xa);
+      } else {
+#pragma unroll
+        for (int j = 0; j < JC; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<uint32_t*>(x_buf + tile_off(ln.row(half), j, ln.q)) =
+                pack_bf16(v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+        fence_proxy_async();
+        wg_sync(1 + wg);
+      }
+    }
+
+    // ---- 2. the hidden in chunks of 64
+    float acc2[CP / 2];
+#pragma unroll
+    for (int i = 0; i < CP / 2; ++i) acc2[i] = 0.0f;
+    for (int j = 0; j < NJ; ++j, ++n) {
+      Chunk ch;
+      if constexpr (kStage) {
+        ch = staged_chunk(smem, smem + W_BYTES, j);
+      } else {
+        mbar_wait(ring_full + n % RINGS, uint32_t(n / RINGS) & 1);
+        ch = ring_chunk(ring + size_t(n % RINGS) * CHUNK_BYTES);
+      }
+      float acc1[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc1[i] = 0.0f;
+      fence_regs(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CP / 16; ++kk) {
+        if constexpr (kModeA)
+          Mma<64>::rs<0>(acc1, xa[kk], b_w1(ch, kk));
+        else
+          Mma<64>::ss<0, 0>(acc1, a_tile(x_buf, kk), b_w1(ch, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float b = __ldg(p.b1 + j * HJ + ln.col(jj, e));
+          acc1[4 * jj + e] = fmaxf(acc1[4 * jj + e] + b, 0.0f);
+          acc1[4 * jj + 2 + e] = fmaxf(acc1[4 * jj + 2 + e] + b, 0.0f);
+        }
+      uint32_t ha[4][4];
+      to_a_regs(acc1, ha);
+      fence_regs(acc2);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Mma<CP>::rs<0>(acc2, ha[kk], b_w2(ch, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc2);
+      if constexpr (!kStage) {  // the stage is free: bring chunk n + RING
+        wg_sync(1 + wg);
+        if (leader && n + RING < chunks)
+          load_chunk(ring + size_t(n % RINGS) * CHUNK_BYTES, ring_full + n % RINGS, w1_map,
+                     w2_map, int((n + RING) % NJ));
+      }
+    }
+
+    // ---- 3. out = LN2(x + (m + b2)), x rebuilt in f32 from s
+    {
+      float v[4 * JC];
+#pragma unroll
+      for (int j = 0; j < JC; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = ln.col(j, e);
+          const bool ok = c_ok(c);
+          const float g = ok ? __ldg(p.g1 + c) : 0.0f;
+          const float b = ok ? __ldg(p.bl1 + c) : 0.0f;
+          const float b2 = ok ? __ldg(p.b2 + c) : 0.0f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float sv;
+            if constexpr (kModeA) {
+              const float2 f = unpack_bf16(sp[j][half]);
+              sv = e ? f.y : f.x;
+            } else {
+              const float2 f = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                  s_buf + tile_off(ln.row(half), j, ln.q)));
+              sv = e ? f.y : f.x;
+            }
+            const float x = ln_apply(sv, mu[half], rstd[half], g, b);
+            const float m = acc2[4 * j + 2 * half + e] + b2;
+            const float z = kRound ? round_bf16(round_bf16(x) + round_bf16(m)) : x + m;
+            v[4 * j + 2 * half + e] = ok ? z : 0.0f;
+          }
+        }
+      float mu2[2], rstd2[2];
+      row_stats(v, ln, mu2, rstd2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t o[JC];
+#pragma unroll
+        for (int j = 0; j < JC; ++j) {
+          const int c = ln.col(j);
+          const bool ok = c_ok(c);
+          o[j] = pack_bf16(
+              ln_apply(v[4 * j + 2 * half], mu2[half], rstd2[half], ok ? __ldg(p.g2 + c) : 0.0f,
+                       ok ? __ldg(p.bl2 + c) : 0.0f),
+              ln_apply(v[4 * j + 2 * half + 1], mu2[half], rstd2[half],
+                       ok ? __ldg(p.g2 + c + 1) : 0.0f, ok ? __ldg(p.bl2 + c + 1) : 0.0f));
+        }
+        out(o, tile * BM + ln.row(half), half, ln);
+      }
+    }
+    if constexpr (!kModeA) {  // s and x are done with: bring the next tile
+      wg_sync(1 + wg);
+      if (leader && tile + stride < n_tiles) load_tile(s_buf, s_map, full_s, tile + stride);
+    }
+  }
+}
+
+}  // namespace ftile
+#endif  // TAIL_FUSED
 
 }  // namespace hop
 }  // namespace

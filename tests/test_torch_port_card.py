@@ -946,6 +946,100 @@ def test_engine_serves_with_use_pallas_through_k9(tmp_path, dtype):
     assert same / (n_k.numel() + e_k.numel()) >= 0.999
 
 
+# --- K9 on the Hopper route (bf16, dim 128, N <= 64) -----------------------
+# Each launch against its plain stage (fused_generator.PlainStages) on the
+# kernel's own inputs, under K9's bf16 limits (|err| <= 3e-2 + 2^-7 |ref|,
+# mean <= 2e-3: one stage's f32 sums in another order move an output by at
+# most a rounding flip, which the stage's later roundings carry); the whole
+# forward against the whole plain version as above, and twice for the same
+# bits.
+
+K9_ROUTE_CASES = [(45, 1, "random"), (13, 2, "random"), (64, 1, "random"), (45, 2, "random"),
+                  (45, 1, "trained"), (13, 1, "trained"), (64, 1, "trained")]
+
+
+def _trained_k9():
+    from druggen_tpu_torch.interop.msgpack_ckpt import read_flax_checkpoint
+    from druggen_tpu_torch.interop.weights import flax_generator_to_torch, to_torch_tensors
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    ckpt = os.path.join(REPO, "experiments", "r2_scale", "models",
+                        "r2_scale_DrugGEN_glr1e-05_dlr1e-05_dim128_depth1_heads8_batch512"
+                        "_epoch35_datasetchembl_like_150k45_dropout0.0", "DrugGEN-G.ckpt")
+    return fg.GeneratorWeights(*fg.extract_generator_weights(to_torch_tensors(
+        flax_generator_to_torch(read_flax_checkpoint(ckpt)))))
+
+
+def _k9_stage_close(what, got, ref):
+    torch.cuda.synchronize()
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    assert bool(torch.isfinite(got).all()), what
+    assert bool((err <= 3e-2 + 2 ** -7 * ref.abs()).all()), (what, err.max().item())
+    assert err.mean().item() <= 2e-3, (what, err.mean().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,depth,weights", K9_ROUTE_CASES)
+def test_generator_hopper_route_launches_match_their_stages(n, depth, weights):
+    _need_card()
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    gw, z_e, z_n = _k9_inputs(128, 384, depth, n, seed=n + depth, b=16)
+    if weights == "trained":
+        gw = _trained_k9()
+    z_e, z_n = z_e.bfloat16(), z_n.bfloat16()
+    assert fg.hopper_route(n, gw.dim, gw.hidden, torch.bfloat16, gw.b_dim)
+    by_launch = fg.route_by_launch(gw, z_e, z_n, _k9_stage_close, heads=8)
+    before = fg.fused_generator_logits.launches
+    got = fg.fused_generator_logits(gw, z_e, z_n, heads=8)
+    again = fg.fused_generator_logits(gw, z_e, z_n, heads=8)
+    torch.cuda.synchronize()
+    assert fg.fused_generator_logits.launches == before + 2
+    ref = fg.fused_generator_logits_reference(gw.weights, gw.depth, z_e, z_n, heads=8)
+    for g_, a_, l_, r_ in zip(got, again, by_launch, ref):
+        assert torch.equal(g_, a_) and torch.equal(g_, l_)
+        _k9_close(g_, r_, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 65), (torch.float32, 45),
+                                     (torch.bfloat16, 45)])
+def test_generator_kernel_takes_the_route_by_the_rule(dtype, n, monkeypatch):
+    """N 65 and f32 run the generic kernels; the route's shapes run the Hopper
+    launches; both held against the plain version."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    gw, z_e, z_n = _k9_inputs(128, 384, 1, n, seed=n, b=2)
+    z_e, z_n = z_e.to(dtype), z_n.to(dtype)
+    taken = []
+    hopper = fg._hopper_forward
+    monkeypatch.setattr(fg, "_hopper_forward", lambda *a: (taken.append(1), hopper(*a)))
+    got = fg.fused_generator_logits(gw, z_e, z_n, heads=8)
+    torch.cuda.synchronize()
+    assert bool(taken) == (dtype == torch.bfloat16 and n <= 64)
+    ref = fg.fused_generator_logits_reference(gw.weights, gw.depth, z_e, z_n, heads=8)
+    for g_, r_ in zip(got, ref):
+        _k9_close(g_, r_, dtype)
+
+
+@pytest.mark.cuda
+def test_generator_launch_plan_matches_the_library():
+    """The route's libraries take it at 128/384 and not at 128/512; the
+    tail block's shared memory is K1's and the edge readout's weights;
+    every block fits the card."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_generator as fg
+
+    lp = fg.library_plan(128, 384, 45, 8)
+    assert lp["route"] and fg.hopper_route(45, 128, 384, torch.bfloat16, 5)
+    assert lp["tail_smem"] > port.launch_plan(C, H, 1000, 132).fwd_smem
+    assert max(lp["node_smem"], lp["attn_smem"], lp["tail_smem"]) <= port.SMEM_LIMIT
+    assert not fg.library_plan(128, 512, 45, 8)["route"]
+    assert not fg.hopper_route(45, 128, 512, torch.bfloat16, 5)
+
+
 # --- K3 / K4: the v2 edge attention (no projections) -----------------------
 # Kernel against its plain version on the same inputs, compared in f32, as
 # K5/K6's outputs: bf16 |err| <= 1e-2 + 2^-7 |ref| (sums in another order
