@@ -13,7 +13,8 @@ exits non-zero without printing a result line:
                nvcc a (source, widths), all started together; each
                kernel's registers and spills, and the Hopper routes' launch
                plans held against the libraries' shared memory and tiles
-               (K1/K2, K5/K6, K7/K8 and K9's route).
+               (K1/K2, K5/K6, K7/K8, K9's route and K3/K4 at phase 3's
+               shapes, with the blocks a SM the runtime keeps resident).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the main paths' shape (bf16 and f32) and on a ragged shape:
                K1 (``fused_ln_mlp_ln`` forward) and K2 (its backward), also
@@ -30,7 +31,8 @@ exits non-zero without printing a result line:
                64 and 256, and on its Hopper route (bf16, dim 128) launch by
                launch against the plain stages at the serving shape and at
                N 13 / depth 2, twice for the same bits; K3 (``edge_attention_v2_fwd``) and K4 (its
-               backward) at the training shape and on a ragged N, K4 twice
+               backward) at the training shape, on a ragged N and at the
+               largest N the JAX rule admits (108 bf16, 89 f32), both twice
                for the same bits.
 4. serving  — the port's ``InferenceEngine.run()`` on the trained r2_scale
                Generator (bf16, fused edge tail), 4 batches of 512 graphs;
@@ -47,7 +49,9 @@ exits non-zero without printing a result line:
                events, beside the card's bound (K1, K2, also at 128/512 and
                on the split path at 512/1536;
                K5, K6, K7, K8; K9 beside slice 1's forward and the generic
-               kernels, K3, K4); K2's three, K6's five and K8's seven
+               kernels; K3 and K4 with their achieved bytes a second and
+               their device launches a call, one each, counted by the
+               profiler); K2's three, K6's five and K8's seven
                launches one by one (torch.profiler); beside K1, K2, K5, K6, K7 and K8 the same
                products through torch.matmul, a labelled reference (2 for
                K1, 6 for K2; 2 for K5 and 5 for K6 in f32; 4 for K7 and 12
@@ -265,12 +269,18 @@ TOL_BLOCK_PARAM_REL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 TOL_K9 = {torch.bfloat16: (3e-2, 2 ** -7), torch.float32: (1e-4, 0.0)}
 K9_SMALL = (64, 13, 2)
 # K3/K4, the v2 op, against their plain versions as K5's outputs (TOL_ATTN),
-# at the training shape and on a ragged N.  Their f32 operations per (edge
-# row, channel), from the plain versions: K3 the modulate chain (5) and the
-# softmax and weighted sum (7); K4 base, mod and t (5), the softmax (5),
-# dot (3), dt (3), dbase and de (5), and the dq, dk, dv sums (6).
-V2_SHAPES = ((TRAIN_BATCH, N_ATOMS, DIM), (7, 13, DIM))
+# at the training shape and on a ragged N (bf16 and f32), and at the largest
+# N the JAX rule admits at D 128 (108 in bf16, 89 in f32; one graph).  Their
+# f32 operations per (edge row, channel), from the plain versions: K3 the
+# modulate chain (5) and the softmax and weighted sum (7); K4 base, mod and t
+# (5), the softmax (5), dot (3), dt (3), dbase and de (5), and the dq, dk, dv
+# sums (6).
+BOTH = (torch.bfloat16, torch.float32)
+V2_SHAPES = (((TRAIN_BATCH, N_ATOMS, DIM), BOTH), ((7, 13, DIM), BOTH),
+             ((1, 108, DIM), (torch.bfloat16,)), ((1, 89, DIM), (torch.float32,)))
 V2_OPS = (12, 27)
+# K3 and K4's kernels by name, for the profiler's count of device launches
+V2_KERNELS = {"K3": "attn_v2_fwd_tma", "K4": "attn_v2_bwd_tma"}
 
 
 @contextlib.contextmanager
@@ -376,23 +386,28 @@ K6_LAUNCHES = {"stats": "attn_bwd_stats", "rows": "attn_bwd_rows", "node": "attn
 K9_LAUNCHES = {"node": "gen_node_kernel", "attention": "gen_attn_wgmma", "tail": "gen_tail_wgmma"}
 
 
-def launch_split(fn, patterns: dict, required=None) -> dict:
-    """Device milliseconds of one call of ``fn`` by kernel, summed over the
-    kernels whose name contains each pattern (torch.profiler); a pattern of
-    ``required`` (default: all) that matches no kernel raises."""
+def device_events(fn) -> list:
+    """The device events (torch.profiler's key averages) of one call of
+    ``fn``, after a call to warm up."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def launch_split(fn, patterns: dict, required=None) -> dict:
+    """Device milliseconds of one call of ``fn`` by kernel, summed over the
+    kernels whose name contains each pattern (torch.profiler); a pattern of
+    ``required`` (default: all) that matches no kernel raises."""
     out = {label: 0.0 for label in patterns}
     seen = set()
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for label, pat in patterns.items():
-                if pat in e.key:
-                    out[label] += e.self_device_time_total / 1e3
-                    seen.add(label)
+    for e in device_events(fn):
+        for label, pat in patterns.items():
+            if pat in e.key:
+                out[label] += e.self_device_time_total / 1e3
+                seen.add(label)
     missing = set(patterns if required is None else required) - seen
     if missing:
         raise AssertionError(f"no kernel named like {sorted(missing)} ran in the profiled call")
@@ -913,8 +928,8 @@ def check_generator_launches(fg, gw, z_e, z_n, label: str) -> dict:
 
 def check_v2_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = False) -> dict:
     """K3 on edge_pre and node_agg and K4 on dq, dk, dv, de, each against its
-    plain version on the same inputs (TOL_ATTN); ``twice``: K4 run again
-    must give the same bits."""
+    plain version on the same inputs (TOL_ATTN); ``twice``: K3 and K4 run
+    again must give the same bits."""
     acts, _, (ge, gn) = attn_inputs(b, n, d, dtype, gen)
     atol, rtol = TOL_ATTN[dtype]
     errs = {}
@@ -937,34 +952,53 @@ def check_v2_kernels(fa, b: int, n: int, d: int, dtype, gen, twice: bool = False
         del ref
     same = None
     if twice:
-        first = fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS)
-        again = fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS)
-        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        same = {}
+        for label, call in (("K3", lambda: fa.edge_attention_v2_fwd(*acts, HEADS)),
+                            ("K4", lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS))):
+            first, again = call(), call()
+            same[label] = all(torch.equal(x, y) for x, y in zip(first, again))
     print(f"   K3/K4 B {b} N {n} D {d} {str(dtype):>14}: max |kernel - plain| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + ("" if same is None else f"; K4 twice, same bits: {same}"), flush=True)
-    if same is False:
-        raise AssertionError("K4 gave other bits on a second call")
+          + ("" if same is None else f"; twice, same bits: {same}"), flush=True)
+    if same is not None and not all(same.values()):
+        raise AssertionError(f"K3/K4 gave other bits on a second call: {same}")
     return {"max_abs_err": max(errs["edge_pre"], errs["node_agg"]),
             "bwd_max_abs_err": max(errs[k] for k in ("dq", "dk", "dv", "de"))}
 
 
-def v2_bounds(b: int, n: int, d: int, dtype) -> tuple:
-    """Least milliseconds for one K3 and one K4 call: each input read once
-    and each output written once (K3: q, k, v, e in, edge_pre, node out; K4:
-    q, k, v, e, ge, gn in, dq, dk, dv, de out), against their f32
-    operations (V2_OPS an edge row and channel) at the f32 FMA rate."""
+def v2_bytes(b: int, n: int, d: int, dtype) -> tuple:
+    """Bytes one K3 and one K4 call must move: each input read once and each
+    output written once (K3: q, k, v, e in, edge_pre, node out; K4: q, k, v,
+    e, ge, gn in, dq, dk, dv, de out)."""
     item = torch.tensor([], dtype=dtype).element_size()
     rows, nodes = b * n * n, b * n
+    return ((3 * nodes + rows) * d * item + (rows + nodes) * d * item,
+            (4 * nodes + 2 * rows) * d * item + (3 * nodes + rows) * d * item)
+
+
+def v2_bounds(b: int, n: int, d: int, dtype) -> tuple:
+    """Least milliseconds for one K3 and one K4 call: their bytes (v2_bytes)
+    at the card's memory rate against their f32 operations (V2_OPS an edge
+    row and channel) at the f32 FMA rate."""
+    rows = b * n * n
     out = []
-    for nbytes, ops in (((3 * nodes + rows) * d * item + (rows + nodes) * d * item,
-                         V2_OPS[0] * rows * d),
-                        ((4 * nodes + 2 * rows) * d * item + (3 * nodes + rows) * d * item,
-                         V2_OPS[1] * rows * d)):
+    for nbytes, ops in zip(v2_bytes(b, n, d, dtype), (V2_OPS[0] * rows * d,
+                                                      V2_OPS[1] * rows * d)):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_FFMA_S * 1e3
         out.append((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
     return tuple(out)
+
+
+def device_launches(fn, patterns: dict) -> dict:
+    """Device launches of one call of ``fn`` (torch.profiler): those of the
+    kernels named like each pattern, and ``"all"`` of them (copies and fills
+    included)."""
+    events = device_events(fn)
+    out = {label: sum(e.count for e in events if pat in e.key)
+           for label, pat in patterns.items()}
+    out["all"] = sum(e.count for e in events)
+    return out
 
 
 def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
@@ -1556,6 +1590,23 @@ def main() -> int:
               f"dynamic shared memory at N {N_ATOMS}, D {DIM}: K5 "
               f"{alib.edge_attention_fwd_smem_bytes(N_ATOMS, DIM)} B, K6 rows pass "
               f"{ablib.edge_attention_bwd_smem_bytes(N_ATOMS)} B a block")
+        for kernel, (b, n, d), dtype in [(k, shape, dt) for k in ("fwd", "bwd")
+                                         for shape, dts in V2_SHAPES for dt in dts]:
+            vplan = fa.v2_launch_plan(kernel, b, n, d, dtype, num_sms(0))
+            vlib = fa.v2_library_plan(kernel, n, dtype, vplan.stages)
+            if ((vlib["smem_bytes"], vlib["kpt"]) != (vplan.smem_bytes, vplan.kpt)
+                    or vlib["resident_blocks"] < vplan.blocks_per_sm
+                    or fa.v2_library_item_range(vplan.items, vplan.grid, vplan.grid - 1)
+                    != vplan.item_range(vplan.grid - 1)):
+                raise AssertionError(f"v2_launch_plan disagrees with the library: {vplan} vs "
+                                     f"{vlib}")
+            print(f"   fused_attention_v2 {'K3' if kernel == 'fwd' else 'K4'} B {b} N {n} D {d} "
+                  f"{str(dtype)[6:]} (plan = library): {vplan.width}-channel items, "
+                  f"{vplan.width // 8} consumer warps and a producer, {vplan.smem_bytes} B a block, "
+                  f"{vplan.stages} ring slots, {vplan.kpt} keys a thread, "
+                  f"{vplan.blocks_per_sm} block(s) a SM (the runtime keeps "
+                  f"{vlib['resident_blocks']}), grid {vplan.grid} over {vplan.items} items",
+                  flush=True)
         for c, h in ((DIM, HIDDEN), (BLOCK_WIDE_DIM, BLOCK_WIDE_HIDDEN)):
             bplan = fb.launch_plan(c, h, TRAIN_BATCH, N_ATOMS, num_sms(0))
             blib = fb.library_plan(c, h)
@@ -1725,8 +1776,8 @@ def main() -> int:
             K9_SMALL[0], K9_SMALL[1], vocab.m_dim, vocab.b_dim, gen), "random")
         torch.cuda.empty_cache()
         v2_checks = {}
-        for b, n, d in V2_SHAPES:
-            for dtype in (torch.bfloat16, torch.float32):
+        for (b, n, d), dtypes in V2_SHAPES:
+            for dtype in dtypes:
                 v2_checks[(b, n, d, dtype)] = check_v2_kernels(
                     fa, b, n, d, dtype, gen,
                     twice=(b, n, d, dtype) == (TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16))
@@ -2245,15 +2296,26 @@ def main() -> int:
         k4_b = cuda_ms(lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS), 20)
         k3_ms, k4_ms = (k3_a + k3_b) / 2, (k4_a + k4_b) / 2
         (bound3, by3), (bound4, by4) = v2_bounds(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)
+        bytes3, bytes4 = v2_bytes(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16)
+        # device launches a call, counted by the profiler (one each)
+        v2_device = {
+            "K3": device_launches(lambda: fa.edge_attention_v2_fwd(*acts, HEADS), V2_KERNELS),
+            "K4": device_launches(lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, HEADS),
+                                  V2_KERNELS)}
+        if v2_device != {"K3": {"K3": 1, "K4": 0, "all": 1}, "K4": {"K3": 0, "K4": 1, "all": 1}}:
+            raise AssertionError(f"K3 / K4 are not one device launch a call: {v2_device}")
         print(f"   edge_attention_v2_fwd (K3) bf16 B {TRAIN_BATCH} N {N_ATOMS} D {DIM} on "
               f"{name} ({smi_line}):")
         print(f"   kernel {k3_ms:.4f} ms (runs {k3_a:.4f}, {k3_b:.4f}); plain {k3_p:.4f} ms; "
               f"eager reference_attention {k3_c:.4f} ms; bound {bound3:.4f} ms ({by3}); "
-              f"kernel at {100 * bound3 / k3_ms:.1f}% of the bound")
+              f"kernel at {100 * bound3 / k3_ms:.1f}% of the bound; {bytes3 / k3_ms / 1e9:.3f} "
+              f"TB/s of the card's {PEAK_BYTES_S / 1e12:.2f}; device launches a call "
+              f"{v2_device['K3']['all']}")
         print(f"   edge_attention_v2_bwd (K4) bf16, same shape:")
         print(f"   kernel {k4_ms:.4f} ms (runs {k4_a:.4f}, {k4_b:.4f}); plain {k4_p:.4f} ms; "
               f"eager autograd backward of reference_attention {k4_c:.4f} ms; bound "
-              f"{bound4:.4f} ms ({by4}); kernel at {100 * bound4 / k4_ms:.1f}% of the bound",
+              f"{bound4:.4f} ms ({by4}); kernel at {100 * bound4 / k4_ms:.1f}% of the bound; "
+              f"{bytes4 / k4_ms / 1e9:.3f} TB/s; device launches a call {v2_device['K4']['all']}",
               flush=True)
         del acts, ge, gn, v_leaves, r_out
         torch.cuda.empty_cache()
@@ -2432,11 +2494,13 @@ def main() -> int:
         "source": "druggen_tpu_torch/ops/csrc/fused_attention_v2.cu",
         "replaces": "druggen_tpu/ops/fused_attention.py:56",
         "launches": launches_v2["edge_attention_v2_fwd"],
+        "device_launches_per_call": v2_device["K3"]["all"],
         "max_abs_err": k34["max_abs_err"],
         "ms": k3_ms,
         "plain_ms": k3_p,
         "bound_ms": bound3,
         "bound_by": by3,
+        "achieved_tb_s": bytes3 / k3_ms / 1e9,
         "library_ms": None,
         "eager_composite_ms": k3_c,
     }, {
@@ -2445,11 +2509,13 @@ def main() -> int:
         "source": "druggen_tpu_torch/ops/csrc/fused_attention_v2_bwd.cu",
         "replaces": "druggen_tpu/ops/fused_attention.py:101",
         "launches": launches_v2["edge_attention_v2_bwd"],
+        "device_launches_per_call": v2_device["K4"]["all"],
         "max_abs_err": k34["bwd_max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_p,
         "bound_ms": bound4,
         "bound_by": by4,
+        "achieved_tb_s": bytes4 / k4_ms / 1e9,
         "library_ms": None,
         "eager_autograd_ms": k4_c,
     }, {

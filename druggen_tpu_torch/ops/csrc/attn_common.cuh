@@ -1,7 +1,9 @@
-// Device helpers shared by the fused edge-attention kernels K5
-// (fused_attention.cu) and K6 (fused_attention_bwd.cu): the tile constants,
-// the stream-type conversions and the 48 x 128 f32 FMA product tile.
-// Included by both sources; the build hashes it with each of them.
+// Device helpers shared by the CUDA-core routes of the fused edge-attention
+// kernels K5 (fused_attention.cu) and K6 (fused_attention_bwd.cu) and of the
+// megablock kernels K7 (fused_block.cu) and K8 (fused_block_bwd.cu): the
+// tile constants, the stream-type conversions and the 48 x 128 f32 FMA
+// product tile.  Included by those four sources; the build hashes it with
+// every source.
 
 #pragma once
 

@@ -47,6 +47,11 @@ chain without the two projections: q, k, v [B, N, H, dk] and e
 points: q, k, v and e are widened to f32, everything is f32, and the outputs
 are rounded to the stream dtype.  Its routing rule is JAX's: the kernel at
 ``d % 128 == 0`` with the per-graph estimate within 12 MiB (v3's is 10).
+Every shape the rule admits takes one kernel a direction, one launch a call
+(``csrc/attn_v2.cuh``: a work item is one graph and 128 channels, 64 above
+N 64; its query rows' edge slices stream by TMA through a ring of
+shared-memory slots that a producer warp keeps full; geometry in
+:func:`v2_launch_plan`).
 """
 
 from __future__ import annotations
@@ -608,14 +613,115 @@ def edge_modulated_attention_proj(q, k, v, edge_raw, we, be, woe, boe):
 
 # ---------------------------------------------------------------- v2: K3, K4
 
+# The v2 kernels' geometry (csrc/attn_v2.cuh holds the same constants and
+# formula; the libraries refuse a launch whose shared memory disagrees and
+# export theirs: v2_library_plan).
+V2_GROUPS = 8           # key groups of a warp; a thread takes keys g + 8 m
+V2_MAX_KPT = 14         # keys a thread: N at most 112
+V2_REG_KPT = 8          # up to this many keys a thread, 128-channel work items
+V2_MAX_STAGES = 8       # ring slots
+V2_VEC = 512            # bytes a staged row vector (q_i, gn_i; 128 f32 channels)
+V2_SM_SMEM = 233_472    # shared memory of a SM; each resident block reserves 1 KiB
+V2_BLOCK_RESERVE = 1024
+V2_ALIGN, V2_BARS = 1024, 256
+V2_PER = {"fwd": 1, "bwd": 2}   # edge tensors a slot: K3 e; K4 e and ge
+
+
+@dataclasses.dataclass(frozen=True)
+class V2Plan:
+    """Launch geometry of K3 (``kernel`` "fwd") or K4 ("bwd") for ``batch``
+    graphs of ``n`` atoms at D = ``d`` on ``num_sms`` SMs."""
+    kernel: str
+    batch: int
+    n: int
+    d: int
+    bf16: bool
+    kpt: int                # keys a thread (the kernel's instantiation)
+    width: int              # channels a work item (a consumer warp owns 8)
+    stages: int             # ring slots
+    blocks_per_sm: int
+    items: int              # (graph, channel slice) work items
+    grid: int               # persistent blocks
+    smem_bytes: int         # dynamic shared memory a block
+
+    def item_range(self, block: int) -> tuple:
+        """The contiguous run of items ``[begin, end)`` of block ``block``
+        (the kernels' ``item_range``); item ``it`` is graph
+        ``it // (d / width)``, channels ``width (it % (d / width))`` on."""
+        return (self.items * block // self.grid, self.items * (block + 1) // self.grid)
+
+
+def v2_kpt(n: int) -> int:
+    """Keys a thread for N atoms, rounded up to the instantiations 2, 4, .., 14."""
+    return -(-n // 16) * 2
+
+
+def v2_width(n: int) -> int:
+    """Channels a work item: 128 (whole bf16 rows of D 128) up to 8 keys a
+    thread, 64 above (blocks of 8 warps, up to 255 registers a thread)."""
+    return 128 if v2_kpt(n) <= V2_REG_KPT else 64
+
+
+def v2_box_bytes(n: int, bf16: bool) -> int:
+    """One staged [N][width] slice: panels of N rows of 128 bytes (64 bf16 or
+    32 f32 channels), each 1 KiB aligned."""
+    return v2_width(n) * (2 if bf16 else 4) // 128 * (-(-n * 128 // 1024) * 1024)
+
+
+def v2_smem_bytes(kernel: str, n: int, bf16: bool, stages: int) -> int:
+    """Dynamic shared memory of a K3 / K4 block (``attn_v2.cuh::smem_bytes``)."""
+    per = V2_PER[kernel]
+    return (V2_ALIGN + (stages * per + 2) * v2_box_bytes(n, bf16) + stages * per * V2_VEC
+            + V2_BARS)
+
+
+def v2_launch_plan(kernel: str, batch: int, n: int, d: int, dtype, num_sms: int) -> V2Plan:
+    """K3 / K4's launch (``csrc/attn_v2.cuh``): work items of one graph and
+    :func:`v2_width` channels, a block of a consumer warp per 8 channels and
+    a producer warp; K3 with 128-channel items two blocks a SM where two
+    ring slots fit half a SM (56 registers a thread), else one; K4 one (its
+    per-thread totals take up to 120 registers, or 255 with 64-channel
+    items); as many ring slots as fit the block's share of a SM, at most 8;
+    a persistent block per item up to the blocks a SM times ``num_sms``.
+    Raises for a shape it cannot take (none that :func:`uses_v2_kernel`
+    admits)."""
+    if kernel not in V2_PER:
+        raise ValueError(f"kernel is 'fwd' or 'bwd', not {kernel!r}")
+    if not 1 <= n <= V2_GROUPS * V2_MAX_KPT or d <= 0 or d % 128 or batch < 0:
+        raise ValueError(f"K3/K4 take 1 <= N <= {V2_GROUPS * V2_MAX_KPT}, D a multiple of "
+                         f"128 and batch >= 0, got N {n}, D {d}, batch {batch}")
+    bf16 = dtype == torch.bfloat16
+    kpt, width = v2_kpt(n), v2_width(n)
+    half = V2_SM_SMEM // 2 - V2_BLOCK_RESERVE
+    bps = (2 if kernel == "fwd" and width == 128 and v2_smem_bytes(kernel, n, bf16, 2) <= half
+           else 1)
+    budget = half if bps == 2 else SMEM_LIMIT
+    stages = max((s for s in range(2, V2_MAX_STAGES + 1)
+                  if v2_smem_bytes(kernel, n, bf16, s) <= budget), default=0)
+    if stages < 2:
+        raise ValueError(f"K3/K4 at N {n}, D {d}, {dtype}: two ring slots do not fit "
+                         f"{budget:,} B of shared memory")
+    items = batch * (d // width)
+    return V2Plan(kernel=kernel, batch=batch, n=n, d=d, bf16=bf16, kpt=kpt, width=width,
+                  stages=stages, blocks_per_sm=bps, items=items,
+                  grid=max(1, min(items, bps * num_sms)),
+                  smem_bytes=v2_smem_bytes(kernel, n, bf16, stages))
+
+
 @functools.cache
 def _v2_fwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention_v2")
     for fn in (lib.edge_attention_v2_fwd_bf16, lib.edge_attention_v2_fwd_f32):
         fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.edge_attention_v2_fwd_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_longlong)]
+    lib.edge_attention_v2_fwd_plan.restype = None
+    lib.edge_attention_v2_item_range.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.POINTER(ctypes.c_longlong)]
+    lib.edge_attention_v2_item_range.restype = None
     return lib
 
 
@@ -623,11 +729,39 @@ def _v2_fwd_lib() -> ctypes.CDLL:
 def _v2_bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention_v2_bwd")
     for fn in (lib.edge_attention_v2_bwd_bf16, lib.edge_attention_v2_bwd_f32):
-        fn.argtypes = ([ctypes.c_void_p] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 10
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.edge_attention_v2_bwd_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_longlong)]
+    lib.edge_attention_v2_bwd_plan.restype = None
     return lib
+
+
+def v2_library_plan(kernel: str, n: int, dtype, stages: int) -> dict:
+    """What the K3 (``"fwd"``) or K4 (``"bwd"``) library computes for (N, dtype,
+    stages): its shared memory a block, keys a thread, and the blocks a SM
+    the runtime keeps resident (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_longlong * 3)()
+    lib = _v2_fwd_lib() if kernel == "fwd" else _v2_bwd_lib()
+    getattr(lib, f"edge_attention_v2_{kernel}_plan")(n, int(dtype == torch.bfloat16), stages,
+                                                     out)
+    return {"smem_bytes": out[0], "kpt": out[1], "resident_blocks": out[2]}
+
+
+def v2_library_item_range(items: int, grid: int, block: int) -> tuple:
+    """The items the kernels' block ``block`` of ``grid`` takes, as the library
+    computes them."""
+    out = (ctypes.c_longlong * 2)()
+    _v2_fwd_lib().edge_attention_v2_item_range(items, grid, block, out)
+    return out[0], out[1]
+
+
+def _aligned(x):
+    # TMA reads and writes 16-byte-aligned rows
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def edge_attention_v2_fwd(q3, k3, v3, e4, heads: int):
@@ -640,16 +774,18 @@ def edge_attention_v2_fwd(q3, k3, v3, e4, heads: int):
         raise ValueError(f"edge_attention_v2_fwd runs on cpu or cuda, not {q3.device}")
     _check_cuda_args("edge_attention_v2_fwd", q3, k3, v3, e4, (), rule=uses_v2_kernel)
     b, n, d = q3.shape
-    q3, k3, v3, e4 = (x.contiguous() for x in (q3, k3, v3, e4))
+    q3, k3, v3, e4 = (_aligned(x) for x in (q3, k3, v3, e4))
     edge_pre, node = torch.empty_like(e4), torch.empty_like(q3)
     index = _device_index(q3)
+    plan = v2_launch_plan("fwd", b, n, d, q3.dtype, num_sms(index))
     lib = _v2_fwd_lib()
     fn = (lib.edge_attention_v2_fwd_bf16 if q3.dtype == torch.bfloat16
           else lib.edge_attention_v2_fwd_f32)
     with torch.cuda.device(index):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), e4.data_ptr(),
                  edge_pre.data_ptr(), node.data_ptr(), b, n, d,
-                 1.0 / math.sqrt(d // heads), torch.cuda.current_stream(index).cuda_stream)
+                 1.0 / math.sqrt(d // heads), plan.grid, plan.stages, plan.smem_bytes,
+                 torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"edge_attention_v2_fwd kernel launch failed: CUDA error {err}")
     edge_attention_v2_fwd.launches += 1
@@ -670,20 +806,19 @@ def edge_attention_v2_bwd(q3, k3, v3, e4, ge, gn, heads: int):
     b, n, d = q3.shape
     _check_cuda_args("edge_attention_v2_bwd", q3, k3, v3, e4, (),
                      (("ge", ge, (b, n, n, d)), ("gn", gn, (b, n, d))), rule=uses_v2_kernel)
-    q3, k3, v3, e4, ge, gn = (x.contiguous() for x in (q3, k3, v3, e4, ge, gn))
+    q3, k3, v3, e4, ge, gn = (_aligned(x) for x in (q3, k3, v3, e4, ge, gn))
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
     de = torch.empty_like(e4)
-    # per query row and channel: the softmax's max, its sum and sum_j s ds_in
-    stats = torch.empty(3, b * n, d, dtype=torch.float32, device=q3.device)
     index = _device_index(q3)
+    plan = v2_launch_plan("bwd", b, n, d, q3.dtype, num_sms(index))
     lib = _v2_bwd_lib()
     fn = (lib.edge_attention_v2_bwd_bf16 if q3.dtype == torch.bfloat16
           else lib.edge_attention_v2_bwd_f32)
     with torch.cuda.device(index):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), e4.data_ptr(), ge.data_ptr(),
                  gn.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), de.data_ptr(),
-                 stats.data_ptr(), b, n, d, 1.0 / math.sqrt(d // heads),
-                 torch.cuda.current_stream(index).cuda_stream)
+                 b, n, d, 1.0 / math.sqrt(d // heads), plan.grid, plan.stages,
+                 plan.smem_bytes, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"edge_attention_v2_bwd kernel launch failed: CUDA error {err}")
     edge_attention_v2_bwd.launches += 1

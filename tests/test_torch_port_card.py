@@ -1047,7 +1047,14 @@ def test_generator_launch_plan_matches_the_library():
 
 V2_SHAPES = [(torch.bfloat16, 8, 45, 128), (torch.float32, 8, 45, 128),
              (torch.bfloat16, 4, 45, 256), (torch.bfloat16, 5, 13, 128),
-             (torch.float32, 3, 50, 128)]
+             (torch.float32, 3, 50, 128),
+             # one key a group and B 7; the last N of 8 and the first of 10 keys
+             # a thread (K4's totals in registers at two blocks a SM, then one
+             # block); the largest N the JAX rule admits at D 128 in bf16 and f32
+             # and at D 256 in bf16
+             (torch.bfloat16, 7, 1, 128), (torch.bfloat16, 3, 64, 128),
+             (torch.bfloat16, 2, 65, 128), (torch.bfloat16, 1, 108, 128),
+             (torch.float32, 1, 89, 128), (torch.bfloat16, 7, 76, 256)]
 
 
 def _v2_inputs(b, n, d, dtype, seed):
@@ -1100,6 +1107,65 @@ def test_attention_v2_bwd_kernel_is_deterministic():
     second = fa.edge_attention_v2_bwd(*acts, ge, gn, 8)
     for name, a, b in zip(("dq", "dk", "dv", "de"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_attention_v2_fwd_kernel_is_deterministic():
+    """K3's sums run in a fixed order: two calls give the same bits."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, _ = _v2_inputs(16, 45, 128, torch.bfloat16, seed=13)
+    first = fa.edge_attention_v2_fwd(*acts, 8)
+    second = fa.edge_attention_v2_fwd(*acts, 8)
+    for name, a, b in zip(("edge_pre", "node_agg"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d", [(torch.bfloat16, 8, 45, 128),
+                                         (torch.float32, 1, 89, 128),
+                                         (torch.bfloat16, 2, 65, 128)])
+def test_attention_v2_kernels_are_one_device_launch_a_call(dtype, b, n, d):
+    """Each wrapper call of K3 and of K4 is one device launch, counted by the
+    profiler: K4 has no second pass and no statistics scratch to fill."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+
+    acts, (ge, gn) = _v2_inputs(b, n, d, dtype, seed=n + 7)
+    for call, name in ((lambda: fa.edge_attention_v2_fwd(*acts, 8), "attn_v2_fwd_tma"),
+                       (lambda: fa.edge_attention_v2_bwd(*acts, ge, gn, 8), "attn_v2_bwd_tma")):
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+                   and "Memcpy" not in e.key and "Memset" not in e.key]
+        assert len(kernels) == 1 and name in kernels[0][0] and kernels[0][1] == 1, kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("n,d,dtype", [(45, 128, torch.bfloat16), (45, 128, torch.float32),
+                                       (1, 128, torch.bfloat16), (64, 128, torch.bfloat16),
+                                       (65, 128, torch.bfloat16), (108, 128, torch.bfloat16),
+                                       (89, 128, torch.float32), (76, 256, torch.bfloat16)])
+def test_attention_v2_launch_plan_matches_the_library(kernel, n, d, dtype):
+    """v2_launch_plan's shared memory and keys a thread are the library's;
+    the runtime keeps as many blocks a SM resident as the plan's grid
+    assumes; the plan's item runs are the kernels'."""
+    _need_card()
+    from druggen_tpu_torch.ops import fused_attention as fa
+    from druggen_tpu_torch.ops.fused_mlp import num_sms
+
+    plan = fa.v2_launch_plan(kernel, 512, n, d, dtype, num_sms(0))
+    lib = fa.v2_library_plan(kernel, n, dtype, plan.stages)
+    assert (lib["smem_bytes"], lib["kpt"]) == (plan.smem_bytes, plan.kpt), (lib, plan)
+    assert lib["resident_blocks"] >= plan.blocks_per_sm, (lib, plan)
+    for block in (0, 1, plan.grid // 2, plan.grid - 1):
+        assert fa.v2_library_item_range(plan.items, plan.grid, block) == plan.item_range(block)
 
 
 @pytest.mark.cuda
