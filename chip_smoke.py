@@ -100,6 +100,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,6 +133,19 @@ RAGGED_ROWS = 1000
 TRAIN_BATCH = 512
 TRAIN_MOLECULES = 8192      # one epoch = 16 steps of 512
 TRAIN_CADENCE = 8           # metrics, samples and G/D export every 8 steps
+# phase 4c, the CLI with its defaults: molecules asked for, and the training
+# reference of the report's novelty (phase 8's 8,192 corpus molecules, not the
+# 150k file: its canonical set is not cached in a copy of the repository, and
+# canonicalising 150k molecules in the run would cost minutes)
+CLI_SAMPLE_NUM = 1024
+# the JAX engine's report, in its order (druggen_tpu/infer/engine.py:257-293),
+# each numeric key with its range
+REPORT_RANGES = {"validity": (0, 1), "generator_validity": (0, 1), "uniqueness": (0, 1),
+                 "novelty": (0, 1), "novelty_inference": (0, 1),
+                 "novelty_real_inhibitor": (0, 1), "ave_len": (0, 1),
+                 "mean_atom_type": (0, 64), "snn_chembl": (0, 1),
+                 "snn_real_inhibitor": (0, 1), "IntDiv": (0, 1), "qed": (0, 1),
+                 "sa": (1, 10)}
 # kernel vs plain, compared in f32.  bf16: the sums run in another order and
 # an output of |y| <= 4 is worth ~2 bf16 ulps (2 * 2^-6); f32: order only.
 TOL_BF16_MAX, TOL_BF16_MEAN, TOL_F32_MAX = 3e-2, 2e-3, 1e-4
@@ -386,15 +400,24 @@ K6_LAUNCHES = {"stats": "attn_bwd_stats", "rows": "attn_bwd_rows", "node": "attn
 K9_LAUNCHES = {"node": "gen_node_kernel", "attention": "gen_attn_wgmma", "tail": "gen_tail_wgmma"}
 
 
-def device_events(fn) -> list:
+def device_events(fn, tries: int = 3) -> list:
     """The device events (torch.profiler's key averages) of one call of
-    ``fn``, after a call to warm up."""
+    ``fn``, after a call to warm up.  A profile that holds no device event
+    at all lost its trace (seen once on an H100 for a call whose kernel ran:
+    the profiler returned nothing), so it is taken again, up to ``tries``
+    profiles; a call that launches nothing still reads empty."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        print(f"   (profile {attempt + 1} of a call held no device event; profiling again)")
+    return events
 
 
 def launch_split(fn, patterns: dict, required=None) -> dict:
@@ -1006,17 +1029,21 @@ def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
     CUDA-event time, device time by kernel, the card's idle share and the
     call's peak device memory."""
     fwd_ms = cuda_ms(fn, 5)
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    for attempt in range(3):     # a profile with no device event lost its trace
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        if kernels:
+            break
+        print(f"   (profile {attempt + 1} of the forward held no device time; profiling again)")
     busy = sum(k[1] for k in kernels)
     print(f"   serving forward, batch {SERVE_BATCH}, {label}, on {name} ({smi_line}): "
           f"{fwd_ms:.3f} ms (CUDA events); kernels {busy:.3f} ms; idle share "
@@ -1166,7 +1193,7 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
         trained = trainer.G.state_dict()
         same = all(torch.equal(v.cpu(), trained[k].cpu())
                    for k, v in engine.G.state_dict().items())
-        kept, decoded = engine.sample(max_batches=1)
+        kept, decoded, _, _ = engine.sample(max_batches=1)
         print(f"   DrugGEN-G.ckpt -> InferenceEngine: weights bit-equal "
               f"{same}; one batch of {len(decoded)} graphs served, "
               f"{len(kept)} valid")
@@ -1177,8 +1204,77 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
                                         "graphs_per_s": TRAIN_BATCH / steady,
                                         "peak_gib": peak / 2 ** 30}
 
+    def resume_run(full, cfg):
+        """Phase 8r: a second Trainer with ``resume=True`` on a directory that
+        holds the published run's ``state_8`` only runs steps 9-16 and must
+        end where the uninterrupted run ended: the same checkpoint names, the
+        same step, and the same parameters and Adam moments (bit-equality
+        printed; the 8 resumed steps' updates and the moments held to
+        TOL_STEP by relative norm error)."""
+        names = sorted(os.listdir(full.model_dir))
+        states = [n for n in names if n.startswith("state_")]
+        print(f"   the published run wrote {names}")
+        if set(states) != {f"state_{TRAIN_CADENCE}.msgpack", f"state_{2 * TRAIN_CADENCE}.msgpack"}:
+            raise AssertionError(f"the published run wrote the state files {states}")
+        sub = os.path.join(tmp.name, "resumed")
+        rcfg = dataclasses.replace(
+            cfg, resume=True, log_dir=os.path.join(sub, "logs"),
+            sample_dir=os.path.join(sub, "samples"),
+            model_save_dir=os.path.join(sub, "models"))
+        model_dir = os.path.join(rcfg.model_save_dir, rcfg.run_name)
+        os.makedirs(model_dir)
+        shutil.copy(os.path.join(full.model_dir, f"state_{TRAIN_CADENCE}.msgpack"), model_dir)
+        resumed = Trainer(rcfg, vocab=vocab)
+        if resumed.step != TRAIN_CADENCE:
+            raise AssertionError(f"resumed at step {resumed.step}, not {TRAIN_CADENCE}")
+        start = {"g": resumed.g_opt.flat.clone(), "d": resumed.d_opt.flat.clone()}
+        for fn in counted.values():
+            fn.launches = 0
+        ran = []
+        step_fn = resumed.step_fn
+        resumed.step_fn = lambda *args: ran.append(resumed.step) or step_fn(*args)
+        t0 = time.perf_counter()
+        resumed.train()
+        wall = time.perf_counter() - t0
+        launches = {key: fn.launches for key, fn in counted.items()}
+        tail = cfg.depth + 3 * (cfg.ddepth - 1)
+        expect = dict.fromkeys(launches, 0)
+        expect.update(fused_ln_mlp_ln_fwd=tail * len(ran), fused_ln_mlp_ln_bwd=tail * len(ran))
+        print(f"   resumed at step {TRAIN_CADENCE}: ran steps {[i + 1 for i in ran]} in "
+              f"{wall:.2f} s; launches {launches} (expected {expect})")
+        if ran != list(range(TRAIN_CADENCE, 2 * TRAIN_CADENCE)) or resumed.step != full.step:
+            raise AssertionError("the resumed run did not run exactly the remaining steps")
+        if launches != expect:
+            raise AssertionError("the resumed run did not go through K1/K2 as the run does")
+        written = sorted(os.listdir(model_dir))
+        print(f"   the resumed run's directory: {written}")
+        if not set(written) <= set(names) or f"state_{2 * TRAIN_CADENCE}.msgpack" not in written:
+            raise AssertionError("the resumed run wrote other checkpoint names")
+        errs, equal = {}, True
+        for key, (r_opt, f_opt) in {"g": (resumed.g_opt, full.g_opt),
+                                    "d": (resumed.d_opt, full.d_opt)}.items():
+            pairs = {"update": (r_opt.flat - start[key], f_opt.flat - start[key]),
+                     "mu": (r_opt.state.mu, f_opt.state.mu),
+                     "nu": (r_opt.state.nu, f_opt.state.nu)}
+            for what, (got, want) in pairs.items():
+                equal &= torch.equal(got, want)
+                errs[f"{key}_{what}"] = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+            equal &= torch.equal(r_opt.flat, f_opt.flat)
+            equal &= int(r_opt.state.count) == int(f_opt.state.count)
+            errs[f"{key}_param_max_abs"] = (r_opt.flat - f_opt.flat).abs().max().item()
+        print(f"   resumed vs uninterrupted at step {resumed.step}: bit-equal {equal}; "
+              f"relative norm errors and largest |param difference| {errs}; numerics "
+              f"tiers {resumed._numerics_tier} / {full._numerics_tier}", flush=True)
+        tol = TOL_STEP[torch.bfloat16]
+        bad = {k: v for k, v in errs.items() if not k.endswith("max_abs") and not v <= tol}
+        if bad:
+            raise AssertionError(f"the resumed run ends away from the uninterrupted one: {bad}")
+        return {"bit_equal": bool(equal), "errors": errs, "launches": launches}
+
     with phase("8 training"):
         trainer, cfg, launches, _ = train_run("published")
+    with phase("8r training resumed from state_8"):
+        resumed = resume_run(trainer, cfg)
     with phase("8p training --use_pallas"):
         trainer_p, _, launches_p, rate_p = train_run("pallas")
     with phase("8b training --fused_block"):
@@ -1487,8 +1583,119 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
     del trainer, trainer_p, trainer_b
     tmp.cleanup()
     return {"launches": launches, "launches_pallas": launches_p, "launches_block": launches_b,
-            "pallas_rate": rate_p, "pallas_profile": prof_p, "block_rate": rate_b,
-            "block_profile": prof_b}
+            "launches_resumed": resumed["launches"], "pallas_rate": rate_p,
+            "pallas_profile": prof_p, "block_rate": rate_b, "block_profile": prof_b}
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy (to read what a run printed)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def cli_serving(tmp_dir: str, inf_smi: str, counted_all: dict, name: str,
+                smi_line: str) -> dict:
+    """Phase 4c: ``python -m druggen_tpu_torch.inference`` as a user runs it,
+    with its defaults (rule-based correction with top-up, the 14-key
+    report), through K9 in bf16 on the trained r2_scale Generator.  The
+    training reference is phase 8's 8,192 molecules (``CLI_SAMPLE_NUM``'s
+    note).  Checks the report's keys, order and ranges, the delivered rows,
+    the top-up rounds and that K9 ran once a forward over every round and no
+    other kernel ran; prints the host time of each stage."""
+    from druggen_tpu_torch import inference as cli
+    from druggen_tpu_torch.infer.engine import InferenceEngine
+
+    train_smi = os.path.join(tmp_dir, f"chembl_like_{TRAIN_MOLECULES}.smi")
+    with open(SMILES_FILE) as src, open(train_smi, "w") as dst:
+        for _, line in zip(range(TRAIN_MOLECULES), src):
+            dst.write(line)
+    # the checkpoint's vocab, under the name the CLI looks for
+    vocab_dir = os.path.join(tmp_dir, "vocab")
+    os.makedirs(vocab_dir, exist_ok=True)
+    names = sorted(os.path.splitext(os.path.basename(f))[0] for f in (train_smi, DRUG_FILE))
+    with open(VOCAB_JSON) as src, open(
+            os.path.join(vocab_dir, f"vocab_{names[0]}_{names[1]}_{N_ATOMS}.json"), "w") as dst:
+        dst.write(src.read())
+    out_dir = os.path.join(tmp_dir, "out_cli")
+    argv = ["--submodel", "DrugGEN", "--inference_model", CKPT_DIR,
+            "--inf_smiles", inf_smi, "--train_smiles", train_smi,
+            "--train_drug_smiles", DRUG_FILE, "--mol_data_dir", tmp_dir,
+            "--output_dir", out_dir, "--inf_batch_size", str(SERVE_BATCH),
+            "--sample_num", str(CLI_SAMPLE_NUM), "--compute_dtype", "bfloat16",
+            "--use_pallas"]
+    print(f"   python -m druggen_tpu_torch.inference {' '.join(argv)}", flush=True)
+    engines = []
+    run = InferenceEngine.run
+
+    def run_and_keep(engine):
+        engines.append(engine)
+        return run(engine)
+
+    for fn in counted_all.values():
+        fn.launches = 0
+    tee = _Tee(sys.stdout)
+    InferenceEngine.run = run_and_keep
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            results = cli.main(argv)
+    finally:
+        InferenceEngine.run = run
+    wall = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in counted_all.items()}
+    engine = engines[0]
+    forwards = len(engine.timings)
+    rounds = engine.topup_rounds
+    print(f"   launches: {launches} over {forwards} forwards in {rounds} top-up round(s) "
+          f"(expected one K9 a forward and no other kernel)")
+    if launches["fused_generator_logits"] != forwards or not forwards:
+        raise AssertionError("the CLI's serving run did not go through K9 once a forward")
+    if any(n for k, n in launches.items() if k != "fused_generator_logits"):
+        raise AssertionError("the CLI's serving run launched another kernel")
+    if list(results) != ["submodel", *REPORT_RANGES]:
+        raise AssertionError(f"the report's keys are not the JAX engine's: {list(results)}")
+    for key, (lo, hi) in REPORT_RANGES.items():
+        v = results[key]
+        if not (isinstance(v, float) and math.isfinite(v) and lo <= v <= hi):
+            raise AssertionError(f"report {key} = {v!r} is not a finite value in [{lo}, {hi}]")
+    printed = tee.text()
+    if rounds != printed.count("correction top-up round") or rounds >= 20:
+        raise AssertionError(f"{rounds} top-up rounds (printed "
+                             f"{printed.count('correction top-up round')}); expected < 20")
+    with open(os.path.join(out_dir, "DrugGEN", "inference_drugs.csv")) as f:
+        delivered = [row["SMILES"] for row in csv.DictReader(f)]
+    with open(os.path.join(out_dir, "DrugGEN", "corrected.smi")) as f:
+        corrected = f.read().splitlines()
+    if len(delivered) != CLI_SAMPLE_NUM and "sampling stalled" not in printed:
+        raise AssertionError(f"{len(delivered)} molecules delivered of {CLI_SAMPLE_NUM} "
+                             "and the run did not say why")
+    if len(set(delivered)) != len(delivered) or not corrected:
+        raise AssertionError("the delivered set has duplicates, or corrected.smi is empty")
+    secs = engine.run_seconds
+    fwd = sum(t["forward_s"] for t in engine.timings)
+    dec = sum(t["decode_s"] for t in engine.timings)
+    print(f"   report: {results}")
+    print(f"   {len(delivered)} molecules delivered ({forwards * SERVE_BATCH} graphs "
+          f"sampled); host seconds by stage: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; of sampling and top-up, device windows {fwd:.3f} and decode {dec:.3f}")
+    rate = len(delivered) / wall
+    print(f"   CLI serving on {name} ({smi_line}): {rate:.1f} molecules delivered a "
+          f"second with correction and the report ({wall:.2f} s for main(), engine "
+          f"set-up included)", flush=True)
+    return {"launches": launches, "forwards": forwards, "rounds": rounds,
+            "molecules_per_s": rate, "seconds": secs, "wall_s": wall}
 
 
 def main() -> int:
@@ -1888,6 +2095,9 @@ def main() -> int:
         if serve_peak_rise > 0.3:
             raise AssertionError(f"the Hopper route raises the use_pallas forward's peak memory "
                                  f"by {serve_peak_rise:.3f} GiB > 0.3")
+
+    with phase("4c serving as the CLI runs it (correction, top-up, report)"):
+        cli_run = cli_serving(tmp.name, inf_smi, counted_all, name, smi_line)
 
     with phase("4a the v2 attention op"):
         acts, _, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
@@ -2362,6 +2572,7 @@ def main() -> int:
         "launches_by_path": {"serving": launches["fused_ln_mlp_ln_fwd"],
                              "serving_use_pallas": launches_p["fused_ln_mlp_ln_fwd"],
                              "training": train["launches"]["fused_ln_mlp_ln_fwd"],
+                             "training_resumed": train["launches_resumed"]["fused_ln_mlp_ln_fwd"],
                              "training_fused_block":
                                  train["launches_block"]["fused_ln_mlp_ln_fwd"]},
         "max_abs_err": k1["max_abs_err"],
@@ -2383,6 +2594,7 @@ def main() -> int:
         "launches": train["launches"]["fused_ln_mlp_ln_bwd"],
         "launches_by_path": {"serving": launches["fused_ln_mlp_ln_bwd"],
                              "training": train["launches"]["fused_ln_mlp_ln_bwd"],
+                             "training_resumed": train["launches_resumed"]["fused_ln_mlp_ln_bwd"],
                              "training_fused_block":
                                  train["launches_block"]["fused_ln_mlp_ln_bwd"]},
         "max_abs_err": k2["max_abs_err"],
@@ -2527,7 +2739,8 @@ def main() -> int:
         "replaces": "druggen_tpu/ops/fused_generator.py:121",
         "launches": launches_p["fused_generator_logits"],
         "launches_by_path": {"serving": launches["fused_generator_logits"],
-                             "serving_use_pallas": launches_p["fused_generator_logits"]},
+                             "serving_use_pallas": launches_p["fused_generator_logits"],
+                             "serving_cli": cli_run["launches"]["fused_generator_logits"]},
         "device_launches_per_call": k9_device_launches,
         "max_abs_err": k9["max_abs_err"],
         "max_abs_err_by_launch": k9_launch_errs,

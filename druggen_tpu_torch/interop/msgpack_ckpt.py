@@ -222,7 +222,7 @@ def _pack(out: bytearray, obj) -> None:
                     out += bytes([code]) + struct.pack(fmt, n)
                     break
     elif isinstance(obj, (np.ndarray, np.generic)):
-        arr = np.ascontiguousarray(obj)
+        arr = np.asarray(obj)          # keeps a 0-d array 0-d; tobytes("C") below
         if arr.nbytes > _MAX_ARRAY_BYTES:
             raise ValueError(f"array of {arr.nbytes} bytes is too large to "
                              "write unchunked")

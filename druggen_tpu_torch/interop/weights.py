@@ -7,7 +7,9 @@ the Discriminator (head ``mlp_fc{1..4}`` <-> ``node_mlp.{0,2,4,6}``,
 package's parameters (as numpy) are carried into the port, and how the
 port's weights go back.  :func:`gan_state_to_port` carries a whole JAX
 ``GANState`` (both parameter trees, both optimizers' AdamW moments and
-counts, the non-finite guard's counters, the step) into the port's layout.
+counts, the non-finite guard's counters, the step) into the port's layout,
+and :func:`port_to_gan_state` carries it back, as the flax state dict that a
+full-state checkpoint (``state_*.msgpack``) holds.
 
 Layout: ``nn.Linear.weight`` is ``[out, in]`` and flax ``Dense.kernel`` is
 ``[in, out]`` (transpose); ``LayerNorm.weight`` is flax ``LayerNorm.scale``.
@@ -183,32 +185,84 @@ def torch_discriminator_to_flax(sd: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the JAX training state -> the port's
+# the JAX training state <-> the port's
 # ---------------------------------------------------------------------------
+
+_GUARD_FIELDS = {"notfinite_count", "total_notfinite", "inner_state"}
+
 
 def _np_scalar(x) -> np.ndarray:
     return np.asarray(x).reshape(())
 
 
+def _i32(x) -> np.ndarray:
+    return np.asarray(x, np.int32).reshape(())
+
+
+def _field(node, name: str):
+    """A field of a NamedTuple state, or the same key of its flax state dict."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _guarded(opt_state) -> bool:
+    if isinstance(opt_state, dict):
+        return set(opt_state) == _GUARD_FIELDS
+    return hasattr(opt_state, "inner_state")
+
+
 def _opt_to_port(opt_state, to_torch) -> dict:
-    """An ``apply_if_all_finite(optax.adamw)`` state (``AllFiniteState``
-    around ``(ScaleByAdamState, EmptyState, EmptyState)``, JAX
-    ``train/step.py:62-65``) -> ``{count, mu, nu, notfinite_count,
-    total_notfinite}``; ``mu`` and ``nu`` as state_dicts of the model."""
-    adam = opt_state.inner_state[0]
-    return {"count": _np_scalar(adam.count),
-            "mu": to_torch(adam.mu), "nu": to_torch(adam.nu),
-            "notfinite_count": _np_scalar(opt_state.notfinite_count),
-            "total_notfinite": _np_scalar(opt_state.total_notfinite)}
+    """An ``optax.adamw`` state (``(ScaleByAdamState, EmptyState,
+    EmptyState)``), bare or inside ``apply_if_all_finite``'s
+    ``AllFiniteState`` (JAX ``train/step.py:62-65``), as objects or as their
+    flax state dict -> ``{count, mu, nu, notfinite_count,
+    total_notfinite}``; ``mu`` and ``nu`` as state_dicts of the model, the
+    guard's counters 0 for a bare state."""
+    guarded = _guarded(opt_state)
+    chain = _field(opt_state, "inner_state") if guarded else opt_state
+    adam = chain["0"] if isinstance(chain, dict) else chain[0]
+    return {"count": _np_scalar(_field(adam, "count")),
+            "mu": to_torch(_field(adam, "mu")), "nu": to_torch(_field(adam, "nu")),
+            "notfinite_count": (_np_scalar(_field(opt_state, "notfinite_count"))
+                                if guarded else _i32(0)),
+            "total_notfinite": (_np_scalar(_field(opt_state, "total_notfinite"))
+                                if guarded else _i32(0))}
 
 
 def gan_state_to_port(state) -> dict:
-    """A JAX ``GANState`` (``train/step.py:29-36``, fetched to numpy, guarded
-    optimizers) -> ``{"g": state_dict, "d": state_dict, "g_opt": {...},
-    "d_opt": {...}, "step": int}`` in the port's layout (numpy values)."""
-    return {"g": flax_generator_to_torch(state.g_params),
-            "d": flax_discriminator_to_torch(state.d_params),
-            "g_opt": _opt_to_port(state.g_opt_state, flax_generator_to_torch),
-            "d_opt": _opt_to_port(state.d_opt_state,
+    """A JAX ``GANState`` (``train/step.py:29-36``, fetched to numpy), or its
+    flax state dict as a state file holds it -> ``{"g": state_dict, "d":
+    state_dict, "g_opt": {...}, "d_opt": {...}, "step": int}`` in the port's
+    layout (numpy values)."""
+    return {"g": flax_generator_to_torch(_field(state, "g_params")),
+            "d": flax_discriminator_to_torch(_field(state, "d_params")),
+            "g_opt": _opt_to_port(_field(state, "g_opt_state"),
+                                  flax_generator_to_torch),
+            "d_opt": _opt_to_port(_field(state, "d_opt_state"),
                                   flax_discriminator_to_torch),
-            "step": int(np.asarray(state.step))}
+            "step": int(np.asarray(_field(state, "step")))}
+
+
+def _opt_to_flax(opt: dict, to_flax, guarded: bool) -> dict:
+    chain = {"0": {"count": _i32(opt["count"]), "mu": to_flax(opt["mu"]),
+                   "nu": to_flax(opt["nu"])},
+             "1": {}, "2": {}}          # add_decayed_weights, scale_by_lr
+    if not guarded:
+        return chain
+    return {"notfinite_count": _i32(opt["notfinite_count"]),
+            "total_notfinite": _i32(opt["total_notfinite"]),
+            "inner_state": chain}
+
+
+def port_to_gan_state(port: dict, guarded: bool = True) -> dict:
+    """The reverse of :func:`gan_state_to_port`: the port's ``{g, d, g_opt,
+    d_opt, step}`` -> the flax state dict of the JAX ``GANState``
+    (``serialization.to_state_dict``; the guard's ``AllFiniteState`` around
+    each optimizer state when ``guarded``), numpy leaves, f32 parameters and
+    moments, int32 counters."""
+    return {"g_params": torch_generator_to_flax(port["g"]),
+            "d_params": torch_discriminator_to_flax(port["d"]),
+            "g_opt_state": _opt_to_flax(port["g_opt"], torch_generator_to_flax,
+                                        guarded),
+            "d_opt_state": _opt_to_flax(port["d_opt"],
+                                        torch_discriminator_to_flax, guarded),
+            "step": _i32(port["step"])}

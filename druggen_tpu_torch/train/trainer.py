@@ -23,10 +23,19 @@ gradient-penalty pass stays plain (JAX ``trainer.py:136-137, 229-234``); a
 Generator with ``use_pallas`` keeps K5/K6 and the fused tail instead, and
 the ladder's tiers 2 and 3 switch the megablock off.
 
+Checkpoints carry the optimizer states and the step for an exact resume,
+as in JAX: ``state_{step}.msgpack`` at every cadence and at the end (the JAX
+``GANState`` layout, :mod:`.checkpoint`), and ``--resume`` continues from the
+newest one on the original schedule, or (with ``--resume_epoch`` and
+``--resume_iter``) from a ``{epoch}-{iter}-G/D.ckpt`` pair with fresh
+optimizer states.  Each step's random draws (the gradient-penalty noise, the
+dropout masks) are seeded from ``(seed, step)`` (:func:`step_seed`), as JAX
+folds the step into its key, so a resumed run draws what an uninterrupted
+one does.
+
 Not ported (each raises ``NotImplementedError``): the parallel modes
 (``mesh_*``, ``distributed``), ``split_step``, ``steps_per_dispatch > 1``,
-``scan_layers``, ``gp_mode="fwdrev"``, ``--features`` and ``--resume``; the
-full-state checkpoints (``state_*.msgpack``) are not written.
+``scan_layers``, ``gp_mode="fwdrev"`` and ``--features``.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from druggen_tpu_torch.chem.vocab import Vocab, get_vocab
 from druggen_tpu_torch.config import TrainConfig
 from druggen_tpu_torch.data.dataset import BatchIterator, GraphData, load_dataset
 from druggen_tpu_torch.infer.engine import resolve_device
+from druggen_tpu_torch.interop.weights import to_torch_tensors
 from druggen_tpu_torch.models import Discriminator, Generator
 from druggen_tpu_torch.train import checkpoint as ckpt
 from druggen_tpu_torch.train.optim import make_optimizers
@@ -55,6 +65,13 @@ from druggen_tpu_torch.utils.sampling import save_sample_artifacts, training_met
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s random draws (0-based): a function of the
+    run's seed and the step alone (JAX: ``fold_in(key, state.step)``,
+    ``train/step.py:260``)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def _reject_unported(cfg: TrainConfig) -> None:
     unported = {
         "mesh_model": cfg.mesh_model > 1, "mesh_node": cfg.mesh_node > 1,
@@ -62,7 +79,7 @@ def _reject_unported(cfg: TrainConfig) -> None:
         "split_step": cfg.split_step,
         "steps_per_dispatch": cfg.steps_per_dispatch > 1,
         "scan_layers": cfg.scan_layers, "gp_mode": cfg.gp_mode != "revrev",
-        "features": cfg.features, "resume": cfg.resume,
+        "features": cfg.features,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -81,7 +98,7 @@ class Trainer:
             np.random.seed(cfg.seed)
             random.seed(cfg.seed)
             os.environ["PYTHONHASHSEED"] = str(cfg.seed)
-            torch.manual_seed(cfg.seed)      # dropout masks
+            torch.manual_seed(cfg.seed)
 
         # ---- data (reference train.py:76-115)
         self.vocab = vocab or get_vocab(
@@ -121,7 +138,10 @@ class Trainer:
         self.G.to(self.device)
         self.D.to(self.device)
         self.g_opt, self.d_opt = make_optimizers(cfg, self.G, self.D)
-        self.gp_noise = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # re-seeded before every step with step_seed(cfg.seed, step); the
+        # global generators too when a model drops out
+        self.gp_noise = torch.Generator(device=self.device)
+        self._seeds_dropout = cfg.dropout > 0 or cfg.ddropout > 0
 
         # ---- numerics ladder (JAX trainer.py:193-240): under bf16 compute
         # the step escalates the first time a fetched loss window shows a
@@ -173,6 +193,60 @@ class Trainer:
         self.drug_fps = fingerprints_for_smiles(self.drug_smiles)
         self.step = 0                       # committed training steps
         self.step_seconds: list[float] = []
+
+        # ---- resume (JAX trainer.py:257-270)
+        if cfg.resume:
+            if cfg.resume_epoch is not None and cfg.resume_iter is not None:
+                directory = cfg.resume_directory or self.model_dir
+                g_sd, d_sd = ckpt.restore_gd_params(
+                    directory, cfg.resume_epoch, cfg.resume_iter)
+                self._load_params(g_sd, d_sd)
+                print(f"restored G/D params from {directory} "
+                      f"{cfg.resume_epoch}-{cfg.resume_iter}")
+            else:
+                restored = ckpt.restore_state(
+                    cfg.resume_directory or self.model_dir, self.state(),
+                    guarded=cfg.nonfinite_guard)
+                if restored is not None:
+                    self.load_state(restored)
+                    print(f"auto-resumed at step {self.step}")
+
+    # ------------------------------------------------------------------
+    def state(self) -> dict:
+        """The training state as ``{g, d, g_opt, d_opt, step}`` (numpy
+        copies; :func:`..interop.weights.gan_state_to_port`'s form)."""
+        def numpy(t):
+            return t.detach().cpu().numpy().copy()
+
+        def tree(sd):
+            return {k: numpy(v) for k, v in sd.items()}
+
+        def opt(o):
+            mu, nu = o.moments()
+            st = o.state
+            return {"count": numpy(st.count), "mu": tree(mu), "nu": tree(nu),
+                    "notfinite_count": numpy(st.notfinite_count),
+                    "total_notfinite": numpy(st.total_notfinite)}
+
+        return {"g": tree(self.G.state_dict()), "d": tree(self.D.state_dict()),
+                "g_opt": opt(self.g_opt), "d_opt": opt(self.d_opt),
+                "step": self.step}
+
+    def _load_params(self, g_sd: dict, d_sd: dict) -> None:
+        # copies into the existing parameters, which stay views of the
+        # optimizers' flat buffers
+        self.G.load_state_dict(to_torch_tensors(g_sd))
+        self.D.load_state_dict(to_torch_tensors(d_sd))
+
+    def load_state(self, state: dict) -> None:
+        """Set parameters, optimizer states and the step from ``state``
+        (the form :meth:`state` returns)."""
+        self._load_params(state["g"], state["d"])
+        for o, st in ((self.g_opt, state["g_opt"]), (self.d_opt, state["d_opt"])):
+            o.load_state(st["count"], to_torch_tensors(st["mu"]),
+                         to_torch_tensors(st["nu"]), st["notfinite_count"],
+                         st["total_notfinite"])
+        self.step = int(state["step"])
 
     # ------------------------------------------------------------------
     def _write_module_summaries(self) -> None:
@@ -226,12 +300,27 @@ class Trainer:
               f"tier {tier}: {names[tier]}", flush=True)
         self._build_step_fns(tier)
 
-    def _work_items(self, mol_iter, drug_iter):
+    def _work_items(self, mol_iter, drug_iter, start_step: int = 0):
         """Per-step work stream ``(epoch, it, arrays)`` (JAX
         ``_work_items`` :370 with one step a dispatch); host-side batch
-        assembly that a prefetch thread overlaps with the device."""
-        for epoch in range(self.cfg.epoch):
-            for it, (x, a) in enumerate(mol_iter.epoch_batches(epoch)):
+        assembly that a prefetch thread overlaps with the device.
+
+        ``start_step`` resumes the schedule mid-run: epochs and iterations
+        the restored step already covers are skipped and the drug stream is
+        fast-forwarded, so a resumed run continues the original epoch plan
+        and checkpoint names."""
+        steps_per_epoch = len(mol_iter)
+        start_epoch, skip = (divmod(start_step, steps_per_epoch)
+                             if steps_per_epoch else (0, 0))
+        for _ in range(start_step):     # the drug stream runs on across
+            next(drug_iter)             # epochs: advance by ALL done steps
+        for epoch in range(start_epoch, self.cfg.epoch):
+            batches = enumerate(mol_iter.epoch_batches(epoch))
+            if epoch == start_epoch and skip:
+                for _ in range(skip):   # mol stream alignment
+                    if next(batches, None) is None:
+                        break
+            for it, (x, a) in batches:
                 dx, da = next(drug_iter)
                 yield epoch, it, (x, a, dx, da)
 
@@ -254,6 +343,10 @@ class Trainer:
                                            seed=cfg.seed, loop=True))
         print(f"Start training... ({len(self.data)} mols, "
               f"{len(self.drug_data)} drugs, device={self.device})", flush=True)
+        if self.step >= cfg.epoch * max(len(mol_iter), 1):
+            print(f"resume: step {self.step} already completes the "
+                  f"{cfg.epoch}-epoch schedule; nothing to do")
+            return self
         flush_every = max(cfg.log_flush_steps, 1)
         pending: list[tuple] = []   # (epoch, it, step, device metrics)
 
@@ -276,9 +369,14 @@ class Trainer:
                 self._escalate_numerics()
 
         sync = time_steps and self.device.type == "cuda"
-        work = prefetch(self._work_items(mol_iter, drug_iter),
+        work = prefetch(self._work_items(mol_iter, drug_iter,
+                                         start_step=self.step),
                         cfg.prefetch_depth)
         for epoch, it, (x, a, dx, da) in work:
+            seed = step_seed(cfg.seed, self.step)
+            self.gp_noise.manual_seed(seed)
+            if self._seeds_dropout:
+                torch.manual_seed(seed)
             t0 = time.perf_counter()
             out = self.step_fn(x, a, dx, da)
             if sync:
@@ -304,10 +402,13 @@ class Trainer:
                       f"({n_valid} valid)", flush=True)
                 ckpt.save_gd_params(self.model_dir, self.G, self.D,
                                     epoch + 1, it + 1)
+                ckpt.save_state(self.model_dir, self.state(),
+                                guarded=cfg.nonfinite_guard)
                 print(f"model saved at epoch {epoch} iteration {it}",
                       flush=True)
         flush()
-        # submodel export for inference
+        # final checkpoint + submodel export for inference
+        ckpt.save_state(self.model_dir, self.state(), guarded=cfg.nonfinite_guard)
         ckpt.save_generator(os.path.join(self.model_dir,
                                          f"{cfg.submodel}-G.ckpt"), self.G)
         self.logger.finish()

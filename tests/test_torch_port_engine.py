@@ -3,10 +3,14 @@
 Both engines load the trained r2_scale Generator at full width (N 45, dim
 128, depth 1, 8 heads) from its tracked flax checkpoint (the port with its
 own reader) and serve the same 8-graph batch in f32: the argmax labels and
-the decoded SMILES must be identical.  Also: the CLI twin, the config
-flags, and the device rule (asking for cuda without a card raises).
+the decoded SMILES must be identical.  With correction on (the CLI's
+default) the two engines' ``run()`` give the same 14-key report and the same
+three output files, through top-up rounds.  Also: the CLI twin with its
+defaults, the config flags, and the device rule (asking for cuda without a
+card raises).
 """
 
+import copy
 import dataclasses
 import os
 
@@ -34,6 +38,15 @@ VOCAB_JSON = os.path.join(REPO, "data", "cache", "vocab",
 SMILES_FILE = os.path.join(REPO, "data", "chembl_like_150k.smi")
 BATCH = 8
 SEED = 1   # the engines' default shuffle seed
+# the JAX engine's report, in its order (druggen_tpu/infer/engine.py:257-293)
+REPORT_KEYS = ["submodel", "validity", "generator_validity", "uniqueness", "novelty",
+               "novelty_inference", "novelty_real_inhibitor", "ave_len", "mean_atom_type",
+               "snn_chembl", "snn_real_inhibitor", "IntDiv", "qed", "sa"]
+OUTPUTS = ("inference_drugs.csv", "inference_results.csv", "corrected.smi")
+CORRECTOR_VARS = ("DRUGGEN_REFERENCE_CORRECTOR", "DRUGGEN_CORRECTOR_CKPT")
+# correction runs: one batch a sample() call, 12 molecules asked for, so the
+# first batch falls short and the top-up rounds run
+CORRECTED_SAMPLE_NUM = 12
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +72,29 @@ def served(tmp_path_factory):
     return jax_engine, port_engine
 
 
+def _corrected_run(engine, out_dir):
+    """``engine.run()`` with correction on (the default) and no neural
+    corrector configured, on a copy of the fixture's engine (the compiled
+    JAX forward and the port's weights are reused); returns the report and
+    the bytes of the three output files."""
+    engine = copy.copy(engine)
+    engine.cfg = dataclasses.replace(engine.cfg, disable_correction=False,
+                                     sample_num=CORRECTED_SAMPLE_NUM,
+                                     output_dir=str(out_dir))
+    with pytest.MonkeyPatch.context() as mp:
+        for var in CORRECTOR_VARS:
+            mp.delenv(var, raising=False)
+        results = engine.run()
+    files = {name: (out_dir / "DrugGEN" / name).read_bytes() for name in OUTPUTS}
+    return results, files, engine
+
+
+@pytest.fixture(scope="module")
+def jax_corrected(served, tmp_path_factory):
+    results, files, _ = _corrected_run(served[0], tmp_path_factory.mktemp("jax_out"))
+    return results, files
+
+
 def test_same_batch_same_labels(served):
     jax_engine, port_engine = served
     np.testing.assert_array_equal(port_engine.data.x, jax_engine.data.x)
@@ -75,7 +111,7 @@ def test_same_batch_same_labels(served):
 def test_same_batch_same_smiles(served):
     jax_engine, port_engine = served
     kept_j, decoded_j, _, _ = jax_engine.sample()
-    kept_p, decoded_p = port_engine.sample()
+    kept_p, decoded_p, _, _ = port_engine.sample()
     assert len(decoded_p) == BATCH
     assert decoded_p == decoded_j
     assert kept_p == kept_j and kept_p
@@ -98,8 +134,8 @@ def test_cli_serves_on_cpu(tmp_path):
         "--inf_batch_size", "4", "--inf_max_batches", "1", "--sample_num",
         "4", "--compute_dtype", "bf16", "--fused_mlp", "--disable_correction",
         "--device", "cpu"])
-    assert set(results) == {"submodel", "validity", "generator_validity",
-                            "uniqueness"}
+    assert list(results) == REPORT_KEYS
+    assert not (tmp_path / "out" / "DrugGEN" / "corrected.smi").exists()
     lines = (tmp_path / "out" / "DrugGEN" / "inference_drugs.csv").read_text()
     assert lines.startswith("SMILES")
 
@@ -128,13 +164,20 @@ def test_cuda_without_a_card_raises():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise(served):
+def test_unported_options_raise(served, tmp_path):
+    """A configured neural corrector raises; the port does not fall back
+    to the rule path on its own."""
     _, port_engine = served
-    with pytest.raises(NotImplementedError, match="correction"):
-        engine = object.__new__(InferenceEngine)
-        engine.cfg = dataclasses.replace(port_engine.cfg,
-                                         disable_correction=False)
-        engine.run()
+    for var in CORRECTOR_VARS:
+        engine = copy.copy(port_engine)
+        engine.cfg = dataclasses.replace(port_engine.cfg, disable_correction=False,
+                                         output_dir=str(tmp_path))
+        with pytest.MonkeyPatch.context() as mp:
+            for other in CORRECTOR_VARS:
+                mp.delenv(other, raising=False)
+            mp.setenv(var, str(tmp_path / "corrector"))
+            with pytest.raises(NotImplementedError, match=var):
+                engine.run()
 
 
 def test_f32_guard_turns_the_kernel_off(served):
@@ -145,3 +188,41 @@ def test_f32_guard_turns_the_kernel_off(served):
                                  g_state_dict=port_engine.G.state_dict())
     assert engine.cfg.fused_mlp is False
     assert not any(b.fused_mlp for b in engine.G.TransformerEncoder.Encoder_Blocks)
+
+
+def test_run_with_correction_matches_jax(served, jax_corrected, tmp_path):
+    """Correction on, top-up forced: the port's report (keys, order,
+    values) and its three output files equal the JAX engine's."""
+    want, want_files = jax_corrected
+    got, got_files, engine = _corrected_run(served[1], tmp_path)
+    assert list(got) == REPORT_KEYS and list(want) == REPORT_KEYS
+    assert got == want
+    assert engine.topup_rounds >= 1 and len(engine.timings) == 1 + engine.topup_rounds
+    assert got_files == want_files
+    delivered = got_files["inference_drugs.csv"].decode().splitlines()[1:]
+    assert len(delivered) == CORRECTED_SAMPLE_NUM == round(got["validity"] * CORRECTED_SAMPLE_NUM)
+    assert 0 < got["qed"] < 1 and 0 < got["IntDiv"] < 1 and 1 <= got["sa"] <= 10
+
+
+def test_cli_serves_with_its_defaults_on_cpu(served, jax_corrected, tmp_path):
+    """``python -m druggen_tpu_torch.inference`` without
+    ``--disable_correction`` on the fixture's inputs: the JAX engine's
+    report and files."""
+    want, want_files = jax_corrected
+    smi = served[1].cfg.inf_smiles
+    vocab_dir = tmp_path / "data" / "vocab"
+    vocab_dir.mkdir(parents=True)
+    with open(VOCAB_JSON) as f:
+        (vocab_dir / "vocab_inf_inf_45.json").write_text(f.read())
+    with pytest.MonkeyPatch.context() as mp:
+        for var in CORRECTOR_VARS:
+            mp.delenv(var, raising=False)
+        got = port_cli.main([
+            "--submodel", "DrugGEN", "--inference_model", CKPT_DIR,
+            "--inf_smiles", smi, "--train_smiles", smi, "--train_drug_smiles", smi,
+            "--mol_data_dir", str(tmp_path / "data"), "--output_dir", str(tmp_path / "out"),
+            "--inf_batch_size", str(BATCH), "--inf_max_batches", "1",
+            "--sample_num", str(CORRECTED_SAMPLE_NUM), "--device", "cpu"])
+    assert got == want
+    for name in OUTPUTS:
+        assert (tmp_path / "out" / "DrugGEN" / name).read_bytes() == want_files[name], name

@@ -234,6 +234,10 @@ VOCAB_JSON = os.path.join(REPO, "data", "cache", "vocab",
                           "vocab_akt1_drugs_chembl_like_150k_45.json")
 SMILES_FILE = os.path.join(REPO, "data", "chembl_like_150k.smi")
 SERVE = 8
+# the JAX engine's report, in its order (druggen_tpu/infer/engine.py:257-293)
+REPORT_KEYS = ["submodel", "validity", "generator_validity", "uniqueness", "novelty",
+               "novelty_inference", "novelty_real_inhibitor", "ave_len", "mean_atom_type",
+               "snn_chembl", "snn_real_inhibitor", "IntDiv", "qed", "sa"]
 
 
 @pytest.fixture(scope="module")
@@ -281,7 +285,7 @@ def test_use_pallas_engine_same_labels_and_smiles_as_jax(served, monkeypatch):
     np.testing.assert_array_equal(n_p.numpy(), np.asarray(n_j))
     np.testing.assert_array_equal(e_p.numpy(), np.asarray(e_j))
     kept_j, decoded_j, _, _ = jax_engine.sample()
-    kept_p, decoded_p = port_engine.sample()
+    kept_p, decoded_p, _, _ = port_engine.sample()
     assert decoded_p == decoded_j and kept_p == kept_j and kept_p
     assert len(port_engine.timings) == 1
 
@@ -310,7 +314,7 @@ def test_cli_serves_with_use_pallas_on_cpu(tmp_path):
         "--inf_max_batches", "1", "--sample_num", "4", "--compute_dtype", "bf16",
         "--use_pallas", "--disable_correction", "--device", "cpu"])
     assert port.fused_generator_logits.launches == before   # the plain version ran
-    assert set(results) == {"submodel", "validity", "generator_validity", "uniqueness"}
+    assert list(results) == REPORT_KEYS
     assert (tmp_path / "out" / "DrugGEN" / "inference_drugs.csv").read_text().startswith("SMILES")
 
 

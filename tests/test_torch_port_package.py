@@ -8,6 +8,7 @@ pure-Python chemistry and data modules behave exactly like the originals.
 import ast
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from druggen_tpu_torch.data import dataset
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "druggen_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "druggen_tpu")
+# a citation of the reference repository by an absolute path
+ABSOLUTE_REFERENCE = re.compile(r"``/\w+/reference/")
 
 
 def _port_sources():
@@ -62,7 +65,8 @@ def test_scan_sees_the_whole_package():
 
 
 @pytest.mark.parametrize("name", ["periodic", "mol", "smiles", "canon", "codec",
-                                  "fingerprints", "depict"])
+                                  "fingerprints", "depict", "smarts", "crippen",
+                                  "alerts", "descriptors", "pains", "filters"])
 def test_chem_copies_are_verbatim(name):
     """The copies differ from the originals only by the import paths and
     the one-line note naming the original."""
@@ -74,14 +78,25 @@ def test_utils_copies_are_verbatim(name):
     _assert_verbatim_copy("utils", name)
 
 
+@pytest.mark.parametrize("package, name", [
+    ("data", "corpus"), ("metrics", "parallel_map"),
+    ("metrics", "descriptor_metrics"), ("metrics", "__init__")])
+def test_data_and_metrics_copies_are_verbatim(package, name):
+    _assert_verbatim_copy(package, name)
+
+
 def _assert_verbatim_copy(package, name):
+    """Equal but for the note, the import paths and the reference
+    repository's path, which the copies cite relative to the checkouts
+    (``reference/...``) where the originals give it absolute."""
     orig = open(os.path.join(REPO, "druggen_tpu", package, f"{name}.py")).read()
     copy = open(os.path.join(PORT, package, f"{name}.py")).read()
     note = (f"\n\nCopied from ``druggen_tpu/{package}/{name}.py``; imports "
             "point at this package.")
     assert note in copy
+    assert not ABSOLUTE_REFERENCE.search(copy)
     copy = copy.replace(note, "", 1).replace("druggen_tpu_torch.", "druggen_tpu.")
-    assert copy == orig
+    assert copy == ABSOLUTE_REFERENCE.sub("``reference/", orig)
 
 
 def test_train_config_is_the_jax_one_plus_device():

@@ -97,9 +97,14 @@ def test_cli_trains_and_its_checkpoint_serves(tmp_path):
     run = [d for d in os.listdir(tmp_path / "m")]
     assert len(run) == 1
     model_dir = tmp_path / "m" / run[0]
-    for name in ("DrugGEN-G.ckpt", "1-5-G.ckpt", "1-5-D.ckpt", "1-10-G.ckpt"):
+    for name in ("DrugGEN-G.ckpt", "1-5-G.ckpt", "1-5-D.ckpt", "1-10-G.ckpt",
+                 "state_10.msgpack"):
         assert (model_dir / name).exists(), name
-    assert not list(model_dir.glob("state_*.msgpack"))
+    # full-state checkpoints at the cadence and at the end, the newest three
+    steps = sum(1 for line in open(next((tmp_path / "l").rglob("*.jsonl")))
+                if '"d_loss"' in line)
+    states = sorted(int(p.stem[len("state_"):]) for p in model_dir.glob("state_*.msgpack"))
+    assert states == sorted(set(range(5, steps + 1, 5)) | {steps})[-3:]
 
     # the JAX package's load_params reads it, into a JAX Generator template
     ours = ckpt.load_params(str(model_dir / "DrugGEN-G.ckpt"))
@@ -132,7 +137,7 @@ def test_cli_trains_and_its_checkpoint_serves(tmp_path):
     sd = flax_generator_to_torch(ours)
     for k, v in engine.G.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k])
-    kept, decoded = engine.sample()
+    kept, decoded, _, _ = engine.sample()
     assert len(decoded) == 8
 
 
@@ -158,15 +163,8 @@ def test_training_defaults_to_cuda_and_raises_without_a_card(tmp_path):
     ["--mesh_model", "2"], ["--mesh_node", "2"], ["--mesh_data", "2"],
     ["--distributed"], ["--split_step"], ["--steps_per_dispatch", "4"],
     ["--scan_layers"],
-    ["--gp_mode", "fwdrev"], ["--features"], ["--resume"]])
+    ["--gp_mode", "fwdrev"], ["--features"]])
 def test_unported_knobs_raise(tmp_path, flag):
     cfg = parse_train_args(_args(tmp_path, "--device", "cpu", *flag))
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(cfg)
-
-
-def test_full_state_checkpoints_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        ckpt.save_state("d", None)
-    with pytest.raises(NotImplementedError):
-        ckpt.restore_state("d", None)
