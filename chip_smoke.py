@@ -87,6 +87,27 @@ exits non-zero without printing a result line:
 10. step profile — one training step under torch.profiler, without and
                with ``use_pallas`` and with ``--fused_block``: device time by
                kernel, each kernel's share, the card's idle share.
+11. native set-up — the native chem library built from the checkout's
+               source with g++ (timed), then the vocabulary scan and the
+               featurization of all 150,000 corpus molecules through it
+               (seconds, molecules a second); the Python path on the first
+               8,192, bit-equal to the native rows (vocab, kept indices, X,
+               A) and timed.
+12. checkpoint selection — ``select_checkpoint.main`` (bf16,
+               ``--fused_mlp``, 1,024 samples, batches of 512, 2 finalists at
+               2,048) on phase 8's two cadence exports and the trained
+               r2_scale Generator under a cadence name: a row for each,
+               every field finite and in range, one K1 launch a forward and
+               no other kernel; seconds of each checkpoint by forward, decode
+               and quality terms; the ranking.
+13. offline evaluation — ChemNet (``default_config``, ``random_init(0)``)
+               on 256 corpus SMILES on the card and on the CPU in f32, held at
+               ``TOL_CHEMNET`` (TF32's distance printed); its CUDA-event ms for
+               a batch of 128; ``evaluate.main`` on phase 4c's delivered set
+               against phase 8's 8,192 molecules and the AKT1 drugs, with the
+               surrogate FCD and with that ChemNet as ``.npz``: the JAX
+               evaluator's keys in order, each finite and in range; host
+               seconds by part.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -107,6 +128,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -146,6 +168,38 @@ REPORT_RANGES = {"validity": (0, 1), "generator_validity": (0, 1), "uniqueness":
                  "mean_atom_type": (0, 64), "snn_chembl": (0, 1),
                  "snn_real_inhibitor": (0, 1), "IntDiv": (0, 1), "qed": (0, 1),
                  "sa": (1, 10)}
+# phases 11-13, the post-training pipeline.  11: the native set-up over the
+# whole corpus, held bit for bit against the Python path on its first
+# PY_SETUP_MOLECULES.  12: the selector ranks phase 8's two cadence exports
+# and the trained r2_scale Generator (under a cadence name) as
+# experiments/r5_scale/post_run.sh runs it, at SELECT_ARGS.  13: ChemNet at
+# default_config, random_init(seed 0), on CHEMNET_MOLECULES corpus SMILES on
+# the card and on the CPU in f32 (TF32 off), held at TOL_CHEMNET (f32 sums in
+# another order through two LSTMs of 350 steps); the evaluator on phase 4c's
+# delivered set against phase 8's 8,192 molecules (a 2,048 sample for the
+# kernel metrics, as post_run.sh samples its 1.59M reference; novelty reads
+# the whole file) and the drugs, with the surrogate FCD and with that
+# ChemNet saved as .npz: the JAX evaluator's keys in its order
+# (evaluate.py:64-205), each finite and in range.
+PY_SETUP_MOLECULES = 8192
+TRAINED_CADENCE_NAME = "35-292-G.ckpt"     # r2_scale: epoch 35, 292 steps an epoch
+SELECT_ARGS = ["--sample_num", "1024", "--inf_batch_size", "512", "--finalists", "2",
+               "--finalist_samples", "2048", "--compute_dtype", "bfloat16", "--fused_mlp"]
+CHEMNET_MOLECULES = 256
+CHEMNET_BATCH = 128
+TOL_CHEMNET = (2e-4, 2e-5)                  # rtol, atol
+EVAL_REF1_SAMPLE = 2048
+EVAL_RANGES = {"validity": (0, 1), "uniqueness": (0, 1), "novelty_ref1": (0, 1),
+               "internal_diversity": (0, 1), "internal_diversity_std": (0, 1),
+               "novelty_ref2": (0, 1), "qed_mean": (0, 1), "qed_std": (0, 1),
+               "sa_mean": (1, 10), "sa_std": (0, 10), "fcd_ref1": (0, math.inf),
+               "fcd_ref2": (0, math.inf), "frag_sim_ref1": (0, 1), "scaf_sim_ref1": (0, 1),
+               "frag_sim_ref2": (0, 1), "scaf_sim_ref2": (0, 1),
+               # rules passed of Lipinski's five and Veber's two
+               "lipinski_mean": (0, 5), "lipinski_std": (0, 5), "veber_mean": (0, 2),
+               "veber_std": (0, 2), "pains_pass_rate": (0, 1)}
+EVAL_COUNTS = ("fcd_is_literal", "n_generated", "n_reference_1",
+               "n_reference_1_kernel_sample", "ref1_sample_seed", "n_reference_2")
 # kernel vs plain, compared in f32.  bf16: the sums run in another order and
 # an output of |y| <= 4 is worth ~2 bf16 ulps (2 * 2^-6); f32: order only.
 TOL_BF16_MAX, TOL_BF16_MEAN, TOL_F32_MAX = 3e-2, 2e-3, 1e-4
@@ -1024,12 +1078,15 @@ def device_launches(fn, patterns: dict) -> dict:
     return out
 
 
-def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
+def profile_forward(fn, label: str, name: str, smi_line: str, required=()) -> dict:
     """One call of ``fn`` (a serving forward) under torch.profiler: its
     CUDA-event time, device time by kernel, the card's idle share and the
-    call's peak device memory."""
+    call's peak device memory.  A profile with no device time, or with no
+    kernel named by one of the ``required`` patterns, lost (part of) its
+    trace (seen on an H100: a K9 forward's profile held only its last two
+    kernels), so it is taken again, up to three profiles."""
     fwd_ms = cuda_ms(fn, 5)
-    for attempt in range(3):     # a profile with no device event lost its trace
+    for attempt in range(3):
         torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -1041,9 +1098,10 @@ def profile_forward(fn, label: str, name: str, smi_line: str) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0]
-        if kernels:
+        if kernels and all(any(pat in k[0] for k in kernels) for pat in required):
             break
-        print(f"   (profile {attempt + 1} of the forward held no device time; profiling again)")
+        print(f"   (profile {attempt + 1} of the forward held no device time or missed a "
+              f"kernel of {list(required)}; profiling again)")
     busy = sum(k[1] for k in kernels)
     print(f"   serving forward, batch {SERVE_BATCH}, {label}, on {name} ({smi_line}): "
           f"{fwd_ms:.3f} ms (CUDA events); kernels {busy:.3f} ms; idle share "
@@ -1070,12 +1128,13 @@ def restore(opts, snap) -> None:
                    for f in dataclasses.fields(st)})
 
 
-def training_phases(name: str, smi_line: str, counted: dict) -> dict:
+def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> dict:
     """Phases 8-10: the port's Trainer at the full r2_scale config, as
     published, with ``use_pallas`` and with ``fused_block``; one step through
     the kernels against one through the plain versions; one step of each
     under the profiler.  ``counted``: the kernel wrappers by record name
-    (each with its ``launches`` count)."""
+    (each with its ``launches`` count).  The published run's cadence G
+    exports are copied into ``<keep_dir>/models`` (phase 12 ranks them)."""
     from druggen_tpu_torch.chem.vocab import Vocab
     from druggen_tpu_torch.config import InferenceConfig, TrainConfig
     from druggen_tpu_torch.data.dataset import BatchIterator
@@ -1273,6 +1332,10 @@ def training_phases(name: str, smi_line: str, counted: dict) -> dict:
 
     with phase("8 training"):
         trainer, cfg, launches, _ = train_run("published")
+        os.makedirs(os.path.join(keep_dir, "models"))
+        for export in (f"1-{TRAIN_CADENCE}-G.ckpt", f"1-{2 * TRAIN_CADENCE}-G.ckpt"):
+            shutil.copy(os.path.join(trainer.model_dir, export),
+                        os.path.join(keep_dir, "models", export))
     with phase("8r training resumed from state_8"):
         resumed = resume_run(trainer, cfg)
     with phase("8p training --use_pallas"):
@@ -1698,6 +1761,234 @@ def cli_serving(tmp_dir: str, inf_smi: str, counted_all: dict, name: str,
             "molecules_per_s": rate, "seconds": secs, "wall_s": wall}
 
 
+def native_setup(name: str, smi_line: str) -> None:
+    """Phase 11: the native library built from the checkout's source (into a
+    fresh directory, timed), then the vocabulary scan and the featurization
+    of the whole corpus through it; the Python path on the first
+    ``PY_SETUP_MOLECULES``, held bit for bit against the native rows."""
+    import numpy as np
+
+    from druggen_tpu_torch import native
+    from druggen_tpu_torch.chem.codec import smiles_to_matrices
+    from druggen_tpu_torch.chem.vocab import build_vocab, read_smiles_file
+
+    build_dir = native.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as fresh:
+        native.BUILD_DIR, native._lib = Path(fresh), None
+        try:
+            t0 = time.perf_counter()
+            native.available()
+            build_s = time.perf_counter() - t0
+        finally:
+            native.BUILD_DIR = build_dir
+    smiles = read_smiles_file(SMILES_FILE)
+    t0 = time.perf_counter()
+    vocab = build_vocab(smiles, N_ATOMS)
+    scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, a, kept = native.featurize_batch_native(smiles, vocab, N_ATOMS)
+    feat_s = time.perf_counter() - t0
+    rate = len(smiles) / (scan_s + feat_s)
+    print(f"   native build ({native.compiler()} {' '.join(native.CXX_FLAGS)}): "
+          f"{build_s:.2f} s; {len(smiles):,} molecules: vocab scan {scan_s:.3f} s, "
+          f"featurize {feat_s:.3f} s ({len(kept):,} kept): {rate:,.0f} molecules a second "
+          f"of set-up; vocab {vocab}")
+    head = smiles[:PY_SETUP_MOLECULES]
+    t0 = time.perf_counter()
+    py_vocab = build_vocab(head, N_ATOMS, use_native=False)
+    py_scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_rows = [(i, r) for i, r in enumerate(smiles_to_matrices(s, vocab, N_ATOMS)
+                                            for s in head) if r is not None]
+    py_feat_s = time.perf_counter() - t0
+    py_rate = len(head) / (py_scan_s + py_feat_s)
+    n = sum(1 for i in kept if i < len(head))
+    equal = (py_vocab == build_vocab(head, N_ATOMS)
+             and [i for i, _ in py_rows] == kept[:n]
+             and np.array_equal(np.stack([r[0] for _, r in py_rows]), x[:n])
+             and np.array_equal(np.stack([r[1] for _, r in py_rows]), a[:n]))
+    print(f"   Python path on the first {len(head):,}: vocab scan {py_scan_s:.3f} s, "
+          f"featurize {py_feat_s:.3f} s: {py_rate:,.0f} molecules a second "
+          f"({rate / py_rate:.1f}x slower than native); vocab, kept indices, X and A "
+          f"bit-equal to the native path's: {equal}")
+    print(f"   native set-up on {name} host ({smi_line}): {rate:,.0f} molecules/s "
+          f"against {py_rate:,.0f} for the Python path", flush=True)
+    if not equal:
+        raise AssertionError("the native set-up disagrees with the Python path")
+
+
+def checkpoint_selection(post_dir: str, ref1: str, counted_all: dict, name: str,
+                         smi_line: str) -> dict:
+    """Phase 12 (returns its launch counts): ``python -m druggen_tpu_torch.select_checkpoint`` as
+    ``experiments/r5_scale/post_run.sh`` runs it (bf16, ``--fused_mlp``), on
+    a directory of phase 8's cadence exports and the trained r2_scale
+    Generator under a cadence name, from a run directory that holds the
+    checkpoint's vocab where the engine looks for it (``data/vocab``).
+    Checks a row for each checkpoint, every field finite and in range, and
+    one K1 launch a block a forward and no other kernel; prints the seconds
+    of each checkpoint by stage and the ranking."""
+    from druggen_tpu_torch import select_checkpoint
+
+    models = os.path.join(post_dir, "models")
+    shutil.copy(os.path.join(CKPT_DIR, "DrugGEN-G.ckpt"),
+                os.path.join(models, TRAINED_CADENCE_NAME))
+    names = sorted(os.path.splitext(os.path.basename(f))[0] for f in (ref1, DRUG_FILE))
+    vocab_dir = os.path.join(post_dir, "data", "vocab")
+    os.makedirs(vocab_dir, exist_ok=True)
+    shutil.copy(TRAIN_VOCAB_JSON,
+                os.path.join(vocab_dir, f"vocab_{names[0]}_{names[1]}_{N_ATOMS}.json"))
+    argv = ["--model_dir", models, "--inf_smiles", ref1, "--train_smiles", ref1,
+            "--train_drug_smiles", DRUG_FILE, "--output",
+            os.path.join(post_dir, "selection.json"), *SELECT_ARGS]
+    print(f"   python -m druggen_tpu_torch.select_checkpoint {' '.join(argv)}", flush=True)
+    for fn in counted_all.values():
+        fn.launches = 0
+    cwd = os.getcwd()
+    os.chdir(post_dir)
+    t0 = time.perf_counter()
+    try:
+        out, seconds = select_checkpoint.main(argv)
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in counted_all.items()}
+    forwards = sum(s["forwards"] for s in seconds)
+    print(f"   launches: {launches} over {forwards} forwards (expected one K1 a block a "
+          f"forward, depth 1, and no other kernel)")
+    if launches["fused_ln_mlp_ln_fwd"] != forwards or not forwards:
+        raise AssertionError("the selector's forwards did not go through K1 once each")
+    if any(n for k, n in launches.items() if k != "fused_ln_mlp_ln_fwd"):
+        raise AssertionError("the selector launched another kernel")
+    ckpts = sorted(os.listdir(models))
+    if sorted(r["ckpt"] for r in out["rows"]) != ckpts or len(ckpts) != 3:
+        raise AssertionError(f"rows {[r['ckpt'] for r in out['rows']]} for {ckpts}")
+    fractions = ("validity", "uniqueness", "novelty", "intdiv", "qed")
+    for row in out["rows"] + out["finalists"]:
+        for key, v in row.items():
+            if key == "ckpt":
+                continue
+            lo, hi = (1, 10) if key == "sa" else (0, 1) if key in fractions else (0, math.inf)
+            if not (math.isfinite(v) and lo <= v <= hi):
+                raise AssertionError(f"{row['ckpt']} {key} = {v!r} not finite in [{lo}, {hi}]")
+    if len(out["finalists"]) != 2:
+        raise AssertionError(f"{len(out['finalists'])} finalists, expected 2")
+    for s in seconds:
+        print(f"   {s['phase']} {s['ckpt']}: {s['forwards']} forwards, device windows "
+              f"{s['forward_s']:.3f} s, decode {s['decode_s']:.3f} s, quality terms "
+              f"{s['quality_s']:.3f} s")
+    print(f"   screen: {[(r['ckpt'], r['score']) for r in out['ranked']]}; finalists: "
+          f"{[(r['ckpt'], r['final_score']) for r in out['finalists']]} (the trained "
+          f"checkpoint is {TRAINED_CADENCE_NAME})")
+    screen = [s for s in seconds if s["phase"] == "screen"]
+    per_ckpt = {k: sum(s[k] for s in screen) / len(screen)
+                for k in ("forward_s", "decode_s", "quality_s")}
+    print(f"   checkpoint selection on {name} ({smi_line}): {wall:.2f} s for main() "
+          f"(engine set-up included); a screened checkpoint {sum(per_ckpt.values()):.2f} s: "
+          + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in per_ckpt.items()), flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """cuDNN's and the matmuls' TF32 switches on for one call, then restored."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def offline_evaluation(post_dir: str, gen_csv: str, ref1: str, name: str,
+                       smi_line: str) -> None:
+    """Phase 13: ChemNet on the card against the CPU (f32) and its time a
+    batch; then ``python -m druggen_tpu_torch.evaluate`` on phase 4c's
+    delivered set, with the surrogate FCD and with the random-init ChemNet
+    as ``.npz``: keys, order, ranges; host seconds by part."""
+    import numpy as np
+
+    from druggen_tpu_torch import evaluate
+    from druggen_tpu_torch.chem.vocab import read_smiles_file
+    from druggen_tpu_torch.metrics import chemnet
+    from druggen_tpu_torch.metrics.chemnet import ChemNet, one_hot_batch
+
+    smiles = read_smiles_file(SMILES_FILE)[:CHEMNET_MOLECULES]
+    card = ChemNet.random_init(0, device="cuda")
+    t0 = time.perf_counter()
+    on_card = card(smiles, batch_size=CHEMNET_BATCH)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = ChemNet.random_init(0, device="cpu")(smiles, batch_size=CHEMNET_BATCH)
+    cpu_s = time.perf_counter() - t0
+    # the same call with TF32 left on, for its distance from f32
+    f32 = chemnet._f32
+    chemnet._f32 = tf32_on
+    try:
+        tf32 = card(smiles, batch_size=CHEMNET_BATCH)
+    finally:
+        chemnet._f32 = f32
+    rtol, atol = TOL_CHEMNET
+    err = np.abs(on_card - on_cpu)
+    excess = (err - rtol * np.abs(on_cpu)).max()
+    tf32_err = np.abs(tf32 - on_cpu)
+    print(f"   ChemNet default_config, random_init(0), {len(smiles)} corpus SMILES, f32 "
+          f"(TF32 off for its calls): card vs CPU max |err| {err.max():.3e} (largest "
+          f"|out| {np.abs(on_cpu).max():.3e}; held at {atol} + {rtol} |ref|); the same "
+          f"call with TF32 on: max |err| {tf32_err.max():.3e}, mean "
+          f"{tf32_err.mean():.3e} (information); host seconds card {card_s:.3f}, CPU "
+          f"{cpu_s:.3f}")
+    if not (on_card.shape == on_cpu.shape == (len(smiles), 512) and excess <= atol):
+        raise AssertionError(f"ChemNet on the card is {excess:.3e} beyond {atol} from the CPU")
+    x = torch.from_numpy(one_hot_batch(smiles[:CHEMNET_BATCH])).cuda()
+    t0 = time.perf_counter()
+    one_hot_batch(smiles[:CHEMNET_BATCH])
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    chemnet_ms = cuda_ms(lambda: card.forward(x), iters=10)
+    print(f"   ChemNet forward, a batch of {CHEMNET_BATCH} on {name} ({smi_line}): "
+          f"{chemnet_ms:.3f} ms (CUDA events, mean of 10); its one-hot encoding on the "
+          f"host {encode_ms:.3f} ms", flush=True)
+    weights = os.path.join(post_dir, "chemnet_random_init_0.npz")
+    card.save_npz(weights)
+    del card
+    for label, extra in (("surrogate", []), ("chemnet", ["--chemnet-weights", weights])):
+        evaluators = []
+        evaluate_all = evaluate.MoleculeEvaluator.evaluate_all
+
+        def keep(ev):
+            evaluators.append(ev)
+            return evaluate_all(ev)
+
+        argv = ["--gen", gen_csv, "--ref1", ref1, "--ref2", DRUG_FILE,
+                "--ref1-sample", str(EVAL_REF1_SAMPLE), "--output",
+                os.path.join(post_dir, f"eval_{label}"), *extra]
+        print(f"   python -m druggen_tpu_torch.evaluate {' '.join(argv)}", flush=True)
+        evaluate.MoleculeEvaluator.evaluate_all = keep
+        t0 = time.perf_counter()
+        try:
+            results = evaluate.main(argv)
+        finally:
+            evaluate.MoleculeEvaluator.evaluate_all = evaluate_all
+        wall = time.perf_counter() - t0
+        if list(results) != [*EVAL_RANGES, *EVAL_COUNTS]:
+            raise AssertionError(f"the report's keys are not the JAX evaluator's: "
+                                 f"{list(results)}")
+        for key, (lo, hi) in EVAL_RANGES.items():
+            v = results[key]
+            if not (isinstance(v, float) and math.isfinite(v) and lo <= v <= hi):
+                raise AssertionError(f"{label}: {key} = {v!r} not finite in [{lo}, {hi}]")
+        if results["fcd_is_literal"] is not (label == "chemnet"):
+            raise AssertionError(f"{label}: fcd_is_literal {results['fcd_is_literal']}")
+        with open(os.path.join(post_dir, f"eval_{label}.json")) as f:
+            if list(json.load(f)) != list(results):
+                raise AssertionError(f"{label}: the JSON's keys differ from the report's")
+        secs = evaluators[0].seconds
+        print(f"   {label}: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in results.items()))
+        print(f"   evaluator ({label} FCD) on {name} ({smi_line}): {wall:.2f} s for main(); "
+              f"host seconds by part: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()),
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2098,6 +2389,12 @@ def main() -> int:
 
     with phase("4c serving as the CLI runs it (correction, top-up, report)"):
         cli_run = cli_serving(tmp.name, inf_smi, counted_all, name, smi_line)
+    # what the post-training phases 11-13 read: the delivered set, phase 8's
+    # exports and its 8,192 molecules
+    post = tempfile.TemporaryDirectory(prefix="chip_smoke_post_")
+    delivered_csv = os.path.join(post.name, "inference_drugs.csv")
+    shutil.copy(os.path.join(tmp.name, "out_cli", "DrugGEN", "inference_drugs.csv"),
+                delivered_csv)
 
     with phase("4a the v2 attention op"):
         acts, _, (ge, gn) = attn_inputs(TRAIN_BATCH, N_ATOMS, DIM, torch.bfloat16, gen)
@@ -2535,7 +2832,7 @@ def main() -> int:
         prof_k1 = profile_forward(lambda: engine.forward(a, x), "bf16 + fused tail",
                                   name, smi_line)
         prof_k9 = profile_forward(lambda: engine_p.forward(a, x), "bf16, use_pallas (K9)",
-                                  name, smi_line)
+                                  name, smi_line, required=K9_LAUNCHES.values())
         # K9 by launch, from the profile of its forward (a profiler session
         # of its own in phase 6 would slow the host for phase 7's timings)
         k9_split = {label: sum(ms for key, ms, _ in prof_k9["kernels"] if pat in key)
@@ -2561,7 +2858,19 @@ def main() -> int:
                   f"{k} {v:.4f} ms (bound {bounds9[k][0]:.4f}, {bounds9[k][1]})"
                   for k, v in k9_split.items()), flush=True)
 
-    train = training_phases(name, smi_line, counted)
+    train = training_phases(name, smi_line, counted, post.name)
+
+    ref1 = os.path.join(post.name, f"chembl_like_{TRAIN_MOLECULES}.smi")
+    with open(SMILES_FILE) as src, open(ref1, "w") as dst:
+        for _, line in zip(range(TRAIN_MOLECULES), src):
+            dst.write(line)
+    with phase("11 native set-up"):
+        native_setup(name, smi_line)
+    with phase("12 checkpoint selection"):
+        launches_select = checkpoint_selection(post.name, ref1, counted_all, name, smi_line)
+    with phase("13 offline evaluation"):
+        offline_evaluation(post.name, delivered_csv, ref1, name, smi_line)
+    post.cleanup()
 
     record = {"kernels": [{
         "name": "fused_ln_mlp_ln_fwd",
@@ -2574,7 +2883,8 @@ def main() -> int:
                              "training": train["launches"]["fused_ln_mlp_ln_fwd"],
                              "training_resumed": train["launches_resumed"]["fused_ln_mlp_ln_fwd"],
                              "training_fused_block":
-                                 train["launches_block"]["fused_ln_mlp_ln_fwd"]},
+                                 train["launches_block"]["fused_ln_mlp_ln_fwd"],
+                             "checkpoint_selection": launches_select["fused_ln_mlp_ln_fwd"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,

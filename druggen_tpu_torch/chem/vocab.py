@@ -1,7 +1,7 @@
 """Atom/bond vocabulary (encoders/decoders).
 
-Copied from ``druggen_tpu/chem/vocab.py`` without its native scan branch;
-imports point at this package.
+Copied from ``druggen_tpu/chem/vocab.py``; imports point at this package,
+and the native scan raises where the JAX one falls back to Python.
 
 Reproduces the semantics of the reference's ``get_encoders_decoders``
 (``src/data/utils.py:26-126``): scan the union of two SMILES corpora, keep
@@ -84,8 +84,21 @@ def read_smiles_file(path: str) -> list[str]:
     return out
 
 
-def build_vocab(smiles_iter, max_atom: int) -> Vocab:
-    """Scan SMILES, build the vocabulary (reference utils.py:83-109)."""
+def build_vocab(smiles_iter, max_atom: int, use_native: bool = True) -> Vocab:
+    """Scan SMILES, build the vocabulary (reference utils.py:83-109).
+
+    Uses the multithreaded C++ scanner (:mod:`druggen_tpu_torch.native`
+    ``dg_vocab_scan``), built at first use, with the Python loop's
+    parse/sanitize/size semantics.  A failed build raises;
+    ``use_native=False`` takes the Python loop."""
+    if use_native:
+        from druggen_tpu_torch import native
+
+        smiles_list = (smiles_iter if isinstance(smiles_iter, list)
+                       else list(smiles_iter))
+        atoms, bonds = native.vocab_scan_native(smiles_list, max_atom)
+        atoms = sorted(set(atoms) | {0})
+        return Vocab(tuple(atoms), tuple([0] + sorted(set(bonds) - {0})))
     atom_labels: set[int] = set()
     bond_labels: set[int] = set()
     for smi in smiles_iter:

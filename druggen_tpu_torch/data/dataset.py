@@ -1,7 +1,8 @@
 """Dense fixed-shape dataset pipeline.
 
-Copied from ``druggen_tpu/data/dataset.py`` without its native featurizer
-branch and ``pad_vertices``; imports point at this package.
+Copied from ``druggen_tpu/data/dataset.py`` without ``pad_vertices``;
+imports point at this package, and the native branch raises where the JAX
+one falls back to Python.
 
 The reference stores molecules as sparse PyG ``Data`` objects collated into a
 ``.pt`` (``src/data/dataset.py:280-317``) and re-densifies every batch on the
@@ -64,12 +65,25 @@ def cache_path_for(raw_file: str, max_atom: int, data_dir: str) -> str:
 
 
 def featurize_smiles(smiles_list: list[str], vocab: Vocab, max_atom: int,
-                     log_every: int = 0,
+                     log_every: int = 0, use_native: bool = True,
                      features: bool = False) -> GraphData:
     """Filter + featurize a SMILES list (reference ``_filter_smiles`` +
     ``process``, dataset.py:80-117,280-317).  Molecules that fail to parse,
     exceed ``max_atom``, use out-of-vocab atoms/bonds, or have isolated
-    atoms are dropped."""
+    atoms are dropped.
+
+    Uses the multithreaded C++ kernel (:mod:`druggen_tpu_torch.native`),
+    built at first use; its outputs are bit-identical to the Python path.
+    A failed build raises; ``use_native=False`` takes the Python path."""
+    if use_native and not features:  # native path has no extra-feature block
+        from druggen_tpu_torch import native
+
+        X, A, kept_idx = native.featurize_batch_native(smiles_list, vocab,
+                                                       max_atom)
+        if len(kept_idx) == 0:
+            raise ValueError("no molecules survived filtering")
+        return GraphData(x=X, a=A, smiles=[smiles_list[i] for i in kept_idx],
+                         vocab=vocab, max_atom=max_atom)
     xs, as_, fs, kept = [], [], [], []
     from druggen_tpu_torch.chem.codec import atom_features
     from druggen_tpu_torch.chem.smiles import mol_from_smiles

@@ -34,12 +34,11 @@ from druggen_tpu_torch.chem.vocab import Vocab, get_vocab, read_smiles_file
 from druggen_tpu_torch.config import InferenceConfig
 from druggen_tpu_torch.data.dataset import BatchIterator, load_dataset
 from druggen_tpu_torch.infer.corrector import SmilesCorrector
-from druggen_tpu_torch.interop.msgpack_ckpt import read_flax_checkpoint
-from druggen_tpu_torch.interop.weights import flax_generator_to_torch, to_torch_tensors
 from druggen_tpu_torch.metrics import molecular as mm
 from druggen_tpu_torch.metrics.descriptor_metrics import mean_qed, mean_sa
 from druggen_tpu_torch.models import Generator
 from druggen_tpu_torch.ops.fused_generator import GeneratorWeights, fused_generator_logits
+from druggen_tpu_torch.train.checkpoint import load_params_auto
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,8 +60,10 @@ class InferenceEngine:
 
     Weights come from ``g_state_dict`` (the port's Generator layout) or, if
     it is None, from ``<cfg.inference_model>/<cfg.submodel>-G.ckpt`` (the
-    JAX package's flax msgpack file).  ``device`` and ``compute_dtype``
-    default to ``cfg.device`` and ``cfg.compute_dtype``."""
+    JAX package's flax msgpack file, unrolled or stacked);
+    :meth:`load_generator` swaps them for another checkpoint's.  ``device``
+    and ``compute_dtype`` default to ``cfg.device`` and
+    ``cfg.compute_dtype``."""
 
     def __init__(self, cfg: InferenceConfig, vocab: Vocab | None = None,
                  g_state_dict: dict | None = None,
@@ -96,14 +97,10 @@ class InferenceEngine:
             else self.compute_dtype,
             fused_mlp=cfg.fused_mlp, use_pallas=cfg.use_pallas)
         if g_state_dict is None:
-            path = os.path.join(cfg.inference_model, f"{cfg.submodel}-G.ckpt")
-            g_state_dict = to_torch_tensors(
-                flax_generator_to_torch(read_flax_checkpoint(path)))
-        self.G.load_state_dict(g_state_dict)
+            g_state_dict = load_params_auto(
+                os.path.join(cfg.inference_model, f"{cfg.submodel}-G.ckpt"))
         self.G.to(self.device).eval()
-        # use_pallas: the forward runs K9 on these weights (packed at its
-        # first call) and never the modules, whose flags only mirror JAX's G
-        self.k9_weights = GeneratorWeights.of(self.G) if cfg.use_pallas else None
+        self.load_generator(g_state_dict)
         # per-batch host-clock seconds of every sample() since the last
         # run() began: the device window (labels in -> labels back,
         # synchronised) and the decode
@@ -111,6 +108,17 @@ class InferenceEngine:
         # host-clock seconds of the last run() by stage, and its top-up rounds
         self.run_seconds: dict[str, float] = {}
         self.topup_rounds = 0
+
+    def load_generator(self, g_state_dict: dict) -> None:
+        """Serve ``g_state_dict``'s weights (the port's Generator layout, e.g.
+        ``train.checkpoint.load_params_auto`` of a cadence export) from now
+        on: they are copied into G, and under ``use_pallas`` K9's weights
+        are taken from G anew (their packed buffers with them)."""
+        self.G.load_state_dict(g_state_dict)
+        # use_pallas: the forward runs K9 on these weights (packed at its
+        # first call) and never the modules, whose flags only mirror JAX's G
+        self.k9_weights = (GeneratorWeights.of(self.G) if self.cfg.use_pallas
+                           else None)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()

@@ -33,6 +33,7 @@ from druggen_tpu_torch.interop.weights import (
     flax_generator_to_torch,
     gan_state_to_port,
     port_to_gan_state,
+    to_torch_tensors,
     torch_discriminator_to_flax,
     torch_generator_to_flax,
 )
@@ -56,6 +57,15 @@ def save_params(path: str, variables: dict) -> None:
 def load_params(path: str) -> dict:
     """Read a flax parameter file (unrolled layout, numpy leaves)."""
     return read_flax_checkpoint(path)
+
+
+def load_params_auto(path: str) -> dict:
+    """A Generator export (``{submodel}-G.ckpt`` or ``{epoch}-{iter}-G.ckpt``)
+    in the unrolled or the stacked ``scan_layers`` layout, as the port's
+    Generator state_dict (torch tensors).  The counterpart of JAX
+    ``load_params_auto`` (``train/checkpoint.py:57-74``): the port's
+    Generator is always unrolled, so a stacked file is unstacked."""
+    return to_torch_tensors(flax_generator_to_torch(read_flax_checkpoint(path)))
 
 
 def save_generator(path: str, G) -> None:

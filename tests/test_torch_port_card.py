@@ -1183,3 +1183,93 @@ def test_edge_modulated_attention_runs_k3_and_k4_first_order_only():
         before[0] + 1, before[1] + 1)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(gq.sum(), leaves[3])
+
+
+# --- the post-training pipeline: ChemNet, the evaluator, the weight swap ----
+
+# ChemNet on the card against the CPU, both f32 with TF32 off for the call:
+# the sums of the convs and the two 350-step LSTMs run in another order
+TOL_CHEMNET = (2e-4, 2e-5)      # rtol, atol
+
+
+def _corpus(n):
+    with open(os.path.join(REPO, "data", "chembl_like_150k.smi")) as f:
+        return [line.split()[0] for _, line in zip(range(n), f)]
+
+
+@pytest.mark.cuda
+def test_chemnet_on_the_card_matches_the_cpu():
+    _need_card()
+    from druggen_tpu_torch.metrics.chemnet import ChemNet
+
+    smiles = _corpus(96) + ["", "C"]
+    card = ChemNet.random_init(0, device="cuda")
+    got = card(smiles, batch_size=64)
+    ref = ChemNet.random_init(0, device="cpu")(smiles, batch_size=64)
+    assert got.shape == ref.shape == (97, 512)
+    np.testing.assert_allclose(got, ref, rtol=TOL_CHEMNET[0], atol=TOL_CHEMNET[1])
+    # a call leaves the TF32 switches as it found them
+    torch.backends.cudnn.allow_tf32 = True
+    card(smiles[:2])
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
+@pytest.mark.cuda
+def test_evaluator_forks_its_workers_after_chemnet_on_the_card(tmp_path):
+    _need_card()
+    from druggen_tpu_torch import evaluate
+    from druggen_tpu_torch.metrics.chemnet import ChemNet
+
+    weights = str(tmp_path / "chemnet.npz")
+    ChemNet.random_init(1, device="cpu").save_npz(weights)
+    smiles = _corpus(400)
+    for name, part in (("gen.smi", smiles[:60]), ("ref1.smi", smiles[100:400]),
+                       ("ref2.smi", smiles[60:100])):
+        (tmp_path / name).write_text("\n".join(part) + "\n")
+    results = evaluate.main(["--gen", str(tmp_path / "gen.smi"), "--ref1",
+                             str(tmp_path / "ref1.smi"), "--ref2", str(tmp_path / "ref2.smi"),
+                             "--n-jobs", "2", "--ref1-sample", "200", "--chemnet-weights",
+                             weights, "--output", str(tmp_path / "res")])
+    assert results["fcd_is_literal"] is True and math.isfinite(results["fcd_ref1"])
+    assert 0 < results["internal_diversity"] < 1 and results["validity"] == 1.0
+
+
+@pytest.mark.cuda
+def test_engine_weight_swap_under_use_pallas_serves_the_new_weights(tmp_path):
+    """K9 serves a swapped-in checkpoint: the labels equal those of an
+    engine built with it, and differ from the first weights'."""
+    _need_card()
+    from druggen_tpu_torch.chem.vocab import Vocab
+    from druggen_tpu_torch.config import InferenceConfig
+    from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.ops import fused_generator as fg
+    from druggen_tpu_torch.train.checkpoint import load_params_auto
+
+    smi = tmp_path / "inf.smi"
+    smi.write_text("\n".join(_corpus(64)) + "\n")
+    with open(os.path.join(REPO, "data", "cache", "vocab",
+                           "vocab_akt1_drugs_chembl_like_150k_45.json")) as f:
+        vocab = Vocab.from_json(f.read())
+    ckpt_dir = os.path.join(
+        REPO, "experiments", "r2_scale", "models",
+        "r2_scale_DrugGEN_glr1e-05_dlr1e-05_dim128_depth1_heads8_batch512"
+        "_epoch35_datasetchembl_like_150k45_dropout0.0")
+    trained = load_params_auto(os.path.join(ckpt_dir, "DrugGEN-G.ckpt"))
+    g = torch.Generator().manual_seed(0)
+    other = {k: v + 0.05 * torch.randn(v.shape, generator=g) if v.is_floating_point() else v
+             for k, v in trained.items()}
+    cfg = InferenceConfig(
+        inference_model=ckpt_dir, inf_smiles=str(smi), train_smiles=str(smi),
+        train_drug_smiles=str(smi), mol_data_dir=str(tmp_path), compute_dtype="bfloat16",
+        use_pallas=True, device="cuda")
+    engine = InferenceEngine(cfg, vocab=vocab, g_state_dict=trained)
+    x, a = engine.data.x[:16], engine.data.a[:16]
+    first = engine.forward(a, x)
+    engine.load_generator(other)
+    before = fg.fused_generator_logits.launches
+    swapped = engine.forward(a, x)
+    assert fg.fused_generator_logits.launches == before + 1
+    want = InferenceEngine(cfg, vocab=vocab, g_state_dict=other).forward(a, x)
+    for got, ref in zip(swapped, want):
+        assert torch.equal(got, ref)
+    assert any(not torch.equal(f, s) for f, s in zip(first, swapped))

@@ -62,11 +62,16 @@ def test_scan_sees_the_whole_package():
     assert "druggen_tpu_torch/infer/engine.py" in paths
     assert "druggen_tpu_torch/train/trainer.py" in paths
     assert "druggen_tpu_torch/train/__main__.py" in paths
+    for module in ("native/__init__.py", "metrics/chemnet.py", "metrics/fcd.py",
+                   "metrics/frag_scaf.py", "chem/scaffolds.py", "evaluate.py",
+                   "select_checkpoint.py"):
+        assert f"druggen_tpu_torch/{module}" in paths
 
 
 @pytest.mark.parametrize("name", ["periodic", "mol", "smiles", "canon", "codec",
                                   "fingerprints", "depict", "smarts", "crippen",
-                                  "alerts", "descriptors", "pains", "filters"])
+                                  "alerts", "descriptors", "pains", "filters",
+                                  "scaffolds"])
 def test_chem_copies_are_verbatim(name):
     """The copies differ from the originals only by the import paths and
     the one-line note naming the original."""
@@ -80,9 +85,18 @@ def test_utils_copies_are_verbatim(name):
 
 @pytest.mark.parametrize("package, name", [
     ("data", "corpus"), ("metrics", "parallel_map"),
-    ("metrics", "descriptor_metrics"), ("metrics", "__init__")])
+    ("metrics", "descriptor_metrics"), ("metrics", "__init__"),
+    ("metrics", "frag_scaf"), ("metrics", "fcd")])
 def test_data_and_metrics_copies_are_verbatim(package, name):
     _assert_verbatim_copy(package, name)
+
+
+def test_native_source_is_byte_equal():
+    """The port builds the JAX package's chem kernel source, byte for byte."""
+    with open(os.path.join(REPO, "druggen_tpu", "native", "chem.cpp"), "rb") as f:
+        orig = f.read()
+    with open(os.path.join(PORT, "native", "chem.cpp"), "rb") as f:
+        assert f.read() == orig
 
 
 def _assert_verbatim_copy(package, name):
