@@ -75,6 +75,20 @@ exits non-zero without printing a result line:
                first-order passes): launch counts of K7 and K8 (and none of
                K1, K2, K5, K6), finite losses, moved parameters, the
                checkpoint served back.
+8f. training with ``--gp_mode fwdrev`` — phase 8's run with the
+               reverse-over-forward penalty (its inner pass first-order, its
+               JVP pass the plain critic): launch counts, finite losses,
+               moved parameters, the checkpoint served back.
+8fb. training with ``--fused_block --gp_mode fwdrev`` — the same with the
+               megablock, which the penalty's inner pass runs too: K7 and
+               K8 G depth + 4 x critic depth a step (5).
+8o. training options — 4 steps each from phase 8's start, no cadence:
+               ``--split_step`` and ``--steps_per_dispatch 4`` (their logged
+               losses held to phase 8's on the same steps, ``TOL_STEP``),
+               ``--scan_layers`` (the stacked export and state, the export
+               served back), ``--features`` (m_dim + 54 dense node blocks,
+               the first 2,048 molecules and drugs on the Python
+               featurizer); K1/K2 launches counted.
 9. step agreement — one step from the same state through the kernels and
                through the plain versions, bf16 and f32: losses, every
                gradient of G and D, and the G edge tails' gradients, against
@@ -84,9 +98,18 @@ exits non-zero without printing a result line:
                f32 one); then the same with ``use_pallas`` (and the G
                attention's gradients, against K5/K6's plain versions) and
                with ``--fused_block`` (against K7/K8's plain versions).
+               The fwdrev step against the revrev step from phases 8f and
+               8fb's states, bf16 and f32 (the critic's gradients held where
+               both penalties round at the same points), through K7/K8 and,
+               at critic depth 2 with ``--fused_critic``, through K1/K2
+               against their plain versions; the f32 fwdrev gradients with
+               the JVP pass's LayerNorm from primitives and through
+               ``F.layer_norm`` against the double backward's (printed).
 10. step profile — one training step under torch.profiler, without and
-               with ``use_pallas`` and with ``--fused_block``: device time by
-               kernel, each kernel's share, the card's idle share.
+               with ``use_pallas``, with ``--fused_block`` and with
+               ``--gp_mode fwdrev`` alone and with ``--fused_block``: device
+               time by kernel, each kernel's share, the card's idle share
+               and the step's peak memory.
 11. native set-up — the native chem library built from the checkout's
                source with g++ (timed), then the vocabulary scan and the
                featurization of all 150,000 corpus molecules through it
@@ -129,6 +152,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -155,6 +179,10 @@ RAGGED_ROWS = 1000
 TRAIN_BATCH = 512
 TRAIN_MOLECULES = 8192      # one epoch = 16 steps of 512
 TRAIN_CADENCE = 8           # metrics, samples and G/D export every 8 steps
+# phase 8o: steps of each option's run, and the corpus and drug molecules of
+# the --features run (featurised on the Python path, as in JAX)
+OPTION_STEPS = 4
+OPTION_FEATURE_MOLECULES = 2048
 # phase 4c, the CLI with its defaults: molecules asked for, and the training
 # reference of the report's novelty (phase 8's 8,192 corpus molecules, not the
 # 150k file: its canonical set is not cached in a copy of the repository, and
@@ -1139,10 +1167,12 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
     from druggen_tpu_torch.config import InferenceConfig, TrainConfig
     from druggen_tpu_torch.data.dataset import BatchIterator
     from druggen_tpu_torch.infer.engine import InferenceEngine
-    from druggen_tpu_torch.models import layers
+    from druggen_tpu_torch.interop.msgpack_ckpt import msgpack_restore
+    from druggen_tpu_torch.models import Discriminator, Generator, layers
     from druggen_tpu_torch.models.layers import numerics
     from druggen_tpu_torch.ops import fused_mlp as fm
-    from druggen_tpu_torch.train.optim import AdamW
+    from druggen_tpu_torch.train.losses import gradient_penalty, gradient_penalty_fwdrev
+    from druggen_tpu_torch.train.optim import AdamW, make_optimizers
     from druggen_tpu_torch.train.step import TrainStep
     from druggen_tpu_torch.train.trainer import Trainer
 
@@ -1154,20 +1184,21 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
     with open(TRAIN_VOCAB_JSON) as f:
         vocab = Vocab.from_json(f.read())
 
-    def train_run(mode: str):
+    def train_run(mode: str, gp_mode: str = "revrev"):
         """One epoch (16 steps) of the trainer as published (``mode``
         "published"), with ``use_pallas`` ("pallas") or with ``fused_block``
-        ("block"); checks launches, losses, moved parameters and the exported
-        checkpoint served back."""
+        ("block"), with the penalty ``gp_mode``; checks launches, losses,
+        moved parameters and the exported checkpoint served back."""
         # experiments/r2_scale/README.md "Config": batch 512, bf16,
         # --fused_mlp --fused_critic, seed 42; dim 128, depth 1, heads 8
         use_pallas, block = mode == "pallas", mode == "block"
-        sub = os.path.join(tmp.name, mode)
+        fwdrev = gp_mode == "fwdrev"
+        sub = os.path.join(tmp.name, mode + ("_fwdrev" if fwdrev else ""))
         cfg = TrainConfig(
             raw_file=raw, drug_raw_file=DRUG_FILE, submodel="DrugGEN",
             batch_size=TRAIN_BATCH, epoch=1, compute_dtype="bfloat16",
             fused_mlp=True, fused_critic=True, use_pallas=use_pallas,
-            fused_block=block,
+            fused_block=block, gp_mode=gp_mode,
             log_sample_step=TRAIN_CADENCE,
             set_seed=True, seed=42, exp_name="chip_smoke",
             mol_data_dir=tmp.name, drug_data_dir=tmp.name,
@@ -1190,23 +1221,25 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         wall = time.perf_counter() - t0
         launches = {key: fn.launches for key, fn in counted.items()}
         steps = trainer.step
-        tail = 0 if block else cfg.depth + 3 * (cfg.ddepth - 1)
+        # the critic's first-order passes a step: real, fake and the G
+        # step's; under fwdrev also the penalty's inner input-gradient pass
+        passes = 4 if fwdrev else 3
+        tail = 0 if block else cfg.depth + passes * (cfg.ddepth - 1)
         # one Generator forward a step (share_fake: its graph is kept for
         # the G update) and one backward; the cadence reads that step's
         # logits and runs no forward of its own
         attn = cfg.depth if use_pallas else 0
         # --fused_block: the megablock in each G block and in each critic
-        # block of the three first-order passes (real, fake, the G step's),
-        # the last block's included (its node output is needed); each is
-        # differentiated once
-        mega = cfg.depth + 3 * cfg.ddepth if block else 0
+        # block of the first-order passes, the last block's included (its
+        # node output is needed); each is differentiated once
+        mega = cfg.depth + passes * cfg.ddepth if block else 0
         expected = {"fused_ln_mlp_ln_fwd": tail * steps, "fused_ln_mlp_ln_bwd": tail * steps,
                     "edge_attention_fwd": attn * steps, "edge_attention_bwd": attn * steps,
                     "fused_block_fwd": mega * steps, "fused_block_bwd": mega * steps}
         print(f"   launches: {launches} over {steps} steps (expected {expected}: "
-              f"K1/K2 G depth + 3 x (critic depth - 1), the critic's last-block "
+              f"K1/K2 G depth + {passes} x (critic depth - 1), the critic's last-block "
               f"edge tail skipped; K5/K6 G depth with use_pallas; with --fused_block "
-              f"K7/K8 G depth + 3 x critic depth and no K1/K2)")
+              f"K7/K8 G depth + {passes} x critic depth and no K1/K2)")
         if steps != TRAIN_MOLECULES // TRAIN_BATCH:
             raise AssertionError(f"{steps} steps, expected one epoch")
         if launches != expected:
@@ -1232,8 +1265,10 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         steady = statistics.median(windows[2:])
         peak = torch.cuda.max_memory_allocated()
         print(f"   step windows (s): {[round(w, 4) for w in windows]}")
-        label = {"published": "", "pallas": " with use_pallas", "block": " with --fused_block"}
-        print(f"   training{label[mode]} on {name} "
+        label = ({"published": "", "pallas": " with use_pallas",
+                  "block": " with --fused_block"}[mode]
+                 + (" --gp_mode fwdrev" if fwdrev else ""))
+        print(f"   training{label} on {name} "
               f"({smi_line}): steady step {steady * 1e3:.2f} "
               f"ms (median window of steps 3-{steps}); training rate "
               f"{TRAIN_BATCH / steady:.1f} graphs/s; peak memory "
@@ -1330,6 +1365,121 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
             raise AssertionError(f"the resumed run ends away from the uninterrupted one: {bad}")
         return {"bit_equal": bool(equal), "errors": errs, "launches": launches}
 
+    def first_steps(work, n: int):
+        """The work items of the first ``n`` steps."""
+        done = 0
+        for item in work:
+            if done >= n:
+                return
+            done += item[2]
+            yield item
+
+    def option_runs(full, cfg) -> dict:
+        """Phase 8o: short runs (OPTION_STEPS steps, the cadence out of
+        reach) of the trainer with the JAX trainer's other single-device
+        options, from the published run's start: ``--split_step`` and
+        ``--steps_per_dispatch 4`` (each logged loss held to phase 8's on
+        the same step within TOL_STEP), ``--scan_layers`` (its stacked
+        export served back) and ``--features`` (dense node blocks of m_dim +
+        54, featurised on the Python path as in JAX, on the first
+        OPTION_FEATURE_MOLECULES molecules and drugs).  K1/K2 launches: G
+        depth a step."""
+        want_losses = {r["step"]: (r["d_loss"], r["g_loss"])
+                       for r in map(json.loads, open(full.logger.jsonl_path)) if "d_loss" in r}
+        small = {}
+        for key, path in (("raw", SMILES_FILE), ("drugs", DRUG_FILE)):
+            small[key] = os.path.join(tmp.name, f"{key}_{OPTION_FEATURE_MOLECULES}.smi")
+            with open(path) as src, open(small[key], "w") as dst:
+                for _, line in zip(range(OPTION_FEATURE_MOLECULES), src):
+                    dst.write(line)
+        results = {}
+        for label, extra in (("split_step", {"split_step": True}),
+                             ("steps_per_dispatch 4", {"steps_per_dispatch": 4}),
+                             ("scan_layers", {"scan_layers": True}),
+                             ("features", {"features": True,
+                                           "raw_file": small["raw"],
+                                           "drug_raw_file": small["drugs"]})):
+            sub = os.path.join(tmp.name, "option_" + label.replace(" ", "_"))
+            ocfg = dataclasses.replace(
+                cfg, log_sample_step=10 ** 6, log_dir=os.path.join(sub, "logs"),
+                sample_dir=os.path.join(sub, "samples"),
+                model_save_dir=os.path.join(sub, "models"), **extra)
+            t0 = time.perf_counter()
+            tr = Trainer(ocfg, vocab=vocab)
+            setup = time.perf_counter() - t0
+            items = tr._work_items
+            tr._work_items = lambda *a, _items=items, **k: first_steps(_items(*a, **k),
+                                                                       OPTION_STEPS)
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            tr.train(time_steps=True)
+            wall = time.perf_counter() - t0
+            launches = {key: fn.launches for key, fn in counted.items()}
+            expect = dict.fromkeys(launches, 0)
+            # the split step runs G forward twice a step (no shared fake)
+            forwards = 2 if ocfg.split_step else 1
+            expect.update(fused_ln_mlp_ln_fwd=forwards * ocfg.depth * tr.step,
+                          fused_ln_mlp_ln_bwd=ocfg.depth * tr.step)
+            got = {r["step"]: (r["d_loss"], r["g_loss"])
+                   for r in map(json.loads, open(tr.logger.jsonl_path)) if "d_loss" in r}
+            windows = tr.step_seconds
+            print(f"   --{label}: {tr.step} steps in {wall:.2f} s after a {setup:.2f} s "
+                  f"set-up; step windows (s) {[round(w, 4) for w in windows]}; m_dim "
+                  f"{tr.m_dim}; launches {launches}; logged losses {got}", flush=True)
+            if tr.step != OPTION_STEPS or launches != expect:
+                raise AssertionError(f"--{label}: {tr.step} steps, launches {launches} "
+                                     f"(expected {OPTION_STEPS} steps, {expect})")
+            if not got or not all(math.isfinite(v) for pair in got.values() for v in pair):
+                raise AssertionError(f"--{label}: losses not finite or missing: {got}")
+            errs = None
+            if label in ("split_step", "steps_per_dispatch 4"):
+                # the same steps as phase 8's first OPTION_STEPS
+                errs = {st: max(abs(g - w) / max(1.0, abs(w))
+                                for g, w in zip(pair, want_losses[st]))
+                        for st, pair in got.items()}
+                logged = list(range(1, OPTION_STEPS + 1)) if label == "split_step" \
+                    else [OPTION_STEPS]
+                print(f"   --{label}: losses against phase 8's on the same steps, "
+                      f"relative error by step {errs}", flush=True)
+                if sorted(got) != logged or max(errs.values()) > TOL_STEP[torch.bfloat16]:
+                    raise AssertionError(f"--{label}: losses away from phase 8's: {errs}")
+            elif label == "scan_layers":
+                files = sorted(os.listdir(tr.model_dir))
+                export = os.path.join(tr.model_dir, "DrugGEN-G.ckpt")
+                with open(export, "rb") as f:
+                    encoder = msgpack_restore(f.read())["params"]["trunk"]["encoder"]
+                with open(os.path.join(tr.model_dir, f"state_{OPTION_STEPS}.msgpack"),
+                          "rb") as f:
+                    st_encoder = msgpack_restore(f.read())["g_params"]["params"]["trunk"]["encoder"]
+                inf = InferenceConfig(
+                    submodel="DrugGEN", inference_model=tr.model_dir,
+                    sample_num=TRAIN_BATCH, disable_correction=True, inf_smiles=raw,
+                    train_smiles=raw, train_drug_smiles=DRUG_FILE,
+                    inf_batch_size=TRAIN_BATCH, inf_max_batches=1, mol_data_dir=tmp.name,
+                    output_dir=os.path.join(sub, "inf"), compute_dtype="bfloat16",
+                    fused_mlp=True, device="cuda")
+                engine = InferenceEngine(inf, vocab=vocab)
+                trained = tr.G.state_dict()
+                same = all(torch.equal(v.cpu(), trained[k].cpu())
+                           for k, v in engine.G.state_dict().items())
+                _, decoded, _, _ = engine.sample(max_batches=1)
+                print(f"   --scan_layers wrote {files}; the export's encoder keys "
+                      f"{sorted(encoder)}, the state's {sorted(st_encoder)}; served by "
+                      f"InferenceEngine: weights bit-equal {same}, {len(decoded)} graphs",
+                      flush=True)
+                if set(encoder) != {"blocks"} or set(st_encoder) != {"blocks"} \
+                        or not same or len(decoded) != TRAIN_BATCH:
+                    raise AssertionError("the stacked --scan_layers export did not serve")
+                del engine
+            elif tr.m_dim != vocab.m_dim + 54 or tr.data.f is None:
+                raise AssertionError(f"--features: m_dim {tr.m_dim}, feature block "
+                                     f"{tr.data.feature_dim}")
+            results[label] = {"wall_s": wall, "setup_s": setup, "launches": launches,
+                              "loss_errors": errs}
+            del tr
+        return results
+
     with phase("8 training"):
         trainer, cfg, launches, _ = train_run("published")
         os.makedirs(os.path.join(keep_dir, "models"))
@@ -1342,6 +1492,13 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         trainer_p, _, launches_p, rate_p = train_run("pallas")
     with phase("8b training --fused_block"):
         trainer_b, _, launches_b, rate_b = train_run("block")
+    with phase("8f training --gp_mode fwdrev"):
+        trainer_f, _, launches_f, rate_f = train_run("published", "fwdrev")
+    with phase("8fb training --fused_block --gp_mode fwdrev"):
+        trainer_fb, _, launches_fb, rate_fb = train_run("block", "fwdrev")
+    with phase("8o training options: --split_step, --steps_per_dispatch 4, --scan_layers, "
+               "--features"):
+        options = option_runs(trainer, cfg)
 
     from druggen_tpu_torch.ops import fused_attention as fa
     from druggen_tpu_torch.ops import fused_block as fb
@@ -1383,7 +1540,7 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
             fm.fused_ln_mlp_ln, fm.fused_ln_mlp_ln_bwd = saved
 
     def agreement(tr, pallas: bool, reference: str, x, a, dx, da, block: bool = False,
-                  tail_same_rows=None):
+                  tail_same_rows=None, gp_mode: str = "revrev"):
         """One step from the same state through the kernels and through a
         reference: ``"plain path"`` (no kernel: the eager modules),
         ``"plain K1/K2"``, ``"plain K5/K6"`` or ``"plain K7/K8"`` (the same
@@ -1391,7 +1548,9 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         --fused_block's (G and the critic's first-order passes in block
         mode).  ``tail_same_rows``: the bf16 G edge tails' agreement with
         the plain path on the same rows and cotangent (tail_diagnosis), held
-        in place of the step's own reading, which follows the cotangent."""
+        in place of the step's own reading, which follows the cotangent.
+        ``gp_mode``: both steps' penalty (under fwdrev its inner pass takes
+        the kernels too)."""
         opts = (tr.g_opt, tr.d_opt)
         g_opt = opts[0]
 
@@ -1400,40 +1559,20 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
                               for n, p in zip(g_opt.names, g_opt.params)]).cuda()
 
         tail, attn = mask(TAIL_PARAMS), mask(ATTN_PARAMS)
+        plain = {"plain K1/K2": plain_tail, "plain K5/K6": plain_attention,
+                 "plain K7/K8": plain_block}
         for dtype in (torch.bfloat16, torch.float32):
-            snap = snapshot(opts)
-            eps_gen = torch.Generator(device="cuda").manual_seed(SEED)
-            eps = (torch.rand((TRAIN_BATCH, 1, 1), generator=eps_gen,
-                              device="cuda", dtype=dtype),
-                   torch.rand((TRAIN_BATCH, 1, 1, 1), generator=eps_gen,
-                              device="cuda", dtype=dtype))
+            eps = penalty_noise(dtype)
             results = {}
             for fused in (True, False):
-                grads = []
-                for o in opts:      # record the gradients each update takes
-                    o.step = (lambda g, o=o: (grads.append(o.flat_grads(g)),
-                                              AdamW.step(o, g)))
-                kernels = fused or reference in ("plain K1/K2", "plain K5/K6",
-                                                       "plain K7/K8")
+                kernels = fused or reference in plain
                 mode = ("block" if block else True) if kernels else False
-                step = TrainStep(tr.G, tr.D, *opts,
-                                 lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
-                                 b_dim=tr.b_dim, submodel=cfg.submodel,
-                                 compute_dtype=dtype, g_fused=mode,
-                                 fused_critic=mode, g_pallas=kernels and pallas)
-                for fn in counted.values():
-                    fn.launches = 0
-                plain = {"plain K1/K2": plain_tail, "plain K5/K6": plain_attention,
-                         "plain K7/K8": plain_block}
                 with contextlib.nullcontext() if fused else (
                         plain.get(reference, contextlib.nullcontext)()):
-                    out = step(x, a, dx, da, eps=eps)
-                results[fused] = (out["d_loss"].float().item(),
-                                  out["g_loss"].float().item(), grads,
-                                  tuple(fn.launches for fn in counted.values()))
-                for o in opts:
-                    del o.step
-                restore(opts, snap)
+                    d_l, g_l, grads, launched = step_record(
+                        tr, dtype, eps, (x, a, dx, da), g_fused=mode, fused_critic=mode,
+                        g_pallas=kernels and pallas, gp_mode=gp_mode)
+                results[fused] = (d_l, g_l, grads, tuple(launched.values()))
             (dk, gk, grads_k, lk), (dp, gp, grads_p, lp) = results[True], results[False]
             rel_d, rel_g = rel_err(grads_k[0], grads_p[0]), rel_err(grads_k[1], grads_p[1])
             rel_tail = rel_err(grads_k[1][tail], grads_p[1][tail])
@@ -1441,6 +1580,8 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
             dl = abs(dk - dp) / max(1.0, abs(dp))
             gl = abs(gk - gp) / max(1.0, abs(gp))
             label = (f"{'use_pallas, ' if pallas else ''}{'--fused_block, ' if block else ''}"
+                     f"{'--gp_mode fwdrev, ' if gp_mode == 'fwdrev' else ''}"
+                     f"{'critic depth 2, ' if len(tr.D.TransformerEncoder.Encoder_Blocks) == 2 else ''}"
                      f"kernels vs {reference}")
             print(f"   {label} {str(dtype):>14}: d_loss {dk:.6f} / {dp:.6f}; "
                   f"g_loss {gk:.6f} / {gp:.6f}; gradient rel. error "
@@ -1470,6 +1611,127 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
                                      f"the {reference} step ({label}, {dtype}): losses "
                                      f"{dl}, {gl}, gradients D {rel_d}, G {rel_g}, "
                                      f"G's edge tails {rel_tail}, G's attention {rel_attn}")
+
+    def penalty_noise(dtype) -> tuple:
+        """The gradient-penalty noise every compared step takes (seed SEED)."""
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return (torch.rand((TRAIN_BATCH, 1, 1), generator=gen, device="cuda", dtype=dtype),
+                torch.rand((TRAIN_BATCH, 1, 1, 1), generator=gen, device="cuda", dtype=dtype))
+
+    def step_record(tr, dtype, eps, batch, **kw):
+        """One step from ``tr``'s state (restored after): the losses, each
+        update's gradients (flat) and the launches by kernel."""
+        opts = (tr.g_opt, tr.d_opt)
+        snap = snapshot(opts)
+        grads = []
+        for o in opts:      # record the gradients each update takes
+            o.step = (lambda g, o=o: (grads.append(o.flat_grads(g)), AdamW.step(o, g)))
+        for fn in counted.values():
+            fn.launches = 0
+        step = TrainStep(tr.G, tr.D, *opts, lambda_gp=cfg.lambda_gp, m_dim=tr.m_dim,
+                         b_dim=tr.b_dim, submodel=cfg.submodel, compute_dtype=dtype, **kw)
+        try:
+            out = step(*batch, eps=eps)
+        finally:
+            for o in opts:
+                del o.step
+            restore(opts, snap)
+        return (out["d_loss"].float().item(), out["g_loss"].float().item(), grads,
+                {key: fn.launches for key, fn in counted.items()})
+
+    def penalty_modes(tr, block: bool, x, a, dx, da) -> dict:
+        """One step from the same state with the reverse-over-forward penalty
+        and with the reference's double backward, through the same kernels
+        (--fused_block's or the published), bf16 and f32: the D loss and the
+        critic's gradients held to TOL_STEP (the same function, summed in
+        another order); G's printed (G trains against critics that one
+        Adam step apart already differ).  fwdrev's inner pass adds a launch
+        of K7 and K8 a critic block (of K1/K2 a critic block but the last).
+        Where it does, in bf16 the two penalties round at other points (the
+        kernels keep f32 where revrev's plain bf16 critic rounds; the JAX
+        package's fused steps differ from its XLA step alike): printed, and
+        the kernels held against their plain versions in the same fwdrev
+        step instead (``agreement``)."""
+        mode = "block" if block else True
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            eps = penalty_noise(dtype)
+            runs = {gp: step_record(tr, dtype, eps, (x, a, dx, da), g_fused=mode,
+                                    fused_critic=mode, gp_mode=gp)
+                    for gp in ("fwdrev", "revrev")}
+            (df, gf, grads_f, lf), (dr, gr, grads_r, lr) = runs["fwdrev"], runs["revrev"]
+            rel_d, rel_g = rel_err(grads_f[0], grads_r[0]), rel_err(grads_f[1], grads_r[1])
+            dl = abs(df - dr) / max(1.0, abs(dr))
+            depth_d = len(tr.D.TransformerEncoder.Encoder_Blocks)
+            extra = depth_d if block else depth_d - 1
+            names = ("fused_block_fwd", "fused_block_bwd") if block else \
+                ("fused_ln_mlp_ln_fwd", "fused_ln_mlp_ln_bwd")
+            held = dtype == torch.float32 or extra == 0
+            print(f"   {'--fused_block, ' if block else ''}fwdrev vs revrev {str(dtype):>14}: "
+                  f"d_loss {df:.6f} / {dr:.6f}; g_loss {gf:.6f} / {gr:.6f}; gradient rel. "
+                  f"error D {rel_d:.3e} ({'held' if held else 'information'}), G "
+                  f"{rel_g:.3e}; launches "
+                  f"{ {k: (lf[k], lr[k]) for k in names} }", flush=True)
+            if any(lf[k] != lr[k] + extra for k in names):
+                raise AssertionError(f"fwdrev's inner pass did not take the kernels: "
+                                     f"{lf} / {lr}")
+            if held and max(dl, rel_d) > TOL_STEP[dtype]:
+                raise AssertionError(f"the fwdrev step disagrees with the revrev step "
+                                     f"({'block' if block else 'published'}, {dtype}): "
+                                     f"d_loss {dl}, D gradient {rel_d}")
+            out[str(dtype)] = {"d_rel": rel_d, "g_rel": rel_g, "d_loss_rel": dl}
+        return out
+
+    def deep_critic(tr):
+        """Phase 8f's Generator (a copy) and a critic of depth 2 (random
+        weights, seed 42), with their own optimizers: the shape at which
+        the fused critic's tail (K1/K2) runs in the penalty's inner pass."""
+        kw = dict(act=cfg.act, vertexes=tr.vertexes, edges=tr.b_dim, nodes=tr.m_dim,
+                  dim=cfg.dim, heads=cfg.heads, mlp_ratio=cfg.mlp_ratio,
+                  dtype=torch.bfloat16)
+        init = torch.Generator().manual_seed(42)
+        G = Generator(dropout=0.0, depth=cfg.depth, fused_mlp=True, generator=init, **kw)
+        G.load_state_dict(tr.G.state_dict())
+        D = Discriminator(dropout=0.0, depth=2, generator=init, **kw)
+        G.to("cuda")
+        D.to("cuda")
+        g_opt, d_opt = make_optimizers(dataclasses.replace(cfg, ddepth=2), G, D)
+        return SimpleNamespace(G=G, D=D, g_opt=g_opt, d_opt=d_opt, m_dim=tr.m_dim,
+                               b_dim=tr.b_dim)
+
+    def layer_norm_trap(tr, x, a, dx, da) -> dict:
+        """Information (a known limit of torch): the f32 fwdrev penalty's
+        critic gradients with the JVP pass's LayerNorms from primitives (as
+        the step runs it) and with ``F.layer_norm``, each against the
+        double backward's, on this card's torch."""
+        step = TrainStep(tr.G, tr.D, tr.g_opt, tr.d_opt, lambda_gp=cfg.lambda_gp,
+                         m_dim=tr.m_dim, b_dim=tr.b_dim, compute_dtype=torch.float32)
+        xs, as_, dxs, das = step._inputs(x, a, dx, da)
+        with torch.no_grad():
+            fake = step._generate(as_, xs)
+        eps = penalty_noise(torch.float32)
+        params = list(tr.D.parameters())
+
+        def critic(forward_mode=False):
+            def run(e, n):
+                with numerics(tr.D, dtype=None, fused_mlp=False, forward_mode=forward_mode):
+                    return tr.D(e, n)
+            return run
+
+        def grads(gp):
+            return torch.cat([g.flatten() for g in torch.autograd.grad(
+                gp, params, allow_unused=True, materialize_grads=True)])
+        ends = (dxs, das, fake[2], fake[3], *eps)
+        want = grads(gradient_penalty(critic(), *ends))
+        out = {}
+        for fm_ in (True, False):
+            got = grads(gradient_penalty_fwdrev(critic(), *ends, critic_jvp=critic(fm_)))
+            out["primitives" if fm_ else "F.layer_norm"] = rel_err(got, want)
+        print(f"   f32 fwdrev penalty's critic gradients against the double backward's "
+              f"(torch {torch.__version__}): JVP pass LayerNorm from primitives "
+              f"{out['primitives']:.3e}; with F.layer_norm {out['F.layer_norm']:.3e} "
+              f"(information)", flush=True)
+        return out
 
     def tail_diagnosis(tr, x, a, dx, da) -> float:
         """The published bf16 step's G edge tail against the plain path's,
@@ -1596,15 +1858,28 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         agreement(trainer_p, True, "plain path", x, a, dx, da)
         agreement(trainer_b, False, "plain K7/K8", x, a, dx, da, block=True)
         agreement(trainer_b, False, "plain path", x, a, dx, da, block=True)
+        # the reverse-over-forward penalty (phases 8f and 8fb's states)
+        modes_f = penalty_modes(trainer_f, False, x, a, dx, da)
+        modes_fb = penalty_modes(trainer_fb, True, x, a, dx, da)
+        agreement(trainer_fb, False, "plain K7/K8", x, a, dx, da, block=True,
+                  gp_mode="fwdrev")
+        deep = deep_critic(trainer_f)
+        agreement(deep, False, "plain K1/K2", x, a, dx, da, gp_mode="fwdrev")
+        modes_deep = penalty_modes(deep, False, x, a, dx, da)
+        del deep
+        trap = layer_norm_trap(trainer_f, x, a, dx, da)
 
     def profile_step(step, label: str) -> dict:
         step(x, a, dx, da)
         step_ms = cuda_ms(lambda: step(x, a, dx, da), 3, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             step(x, a, dx, da)
             torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1630,24 +1905,40 @@ def training_phases(name: str, smi_line: str, counted: dict, keep_dir: str) -> d
         print(f"   training step{label}, batch {TRAIN_BATCH}, bf16, on "
               f"{name} ({smi_line}): {step_ms:.3f} ms (CUDA events, mean of 3); "
               f"kernels {busy:.3f} ms; idle share "
-              f"{max(0.0, 1 - busy / step_ms):.3f}; "
+              f"{max(0.0, 1 - busy / step_ms):.3f}; peak memory {peak:.2f} GiB "
+              f"(max_memory_allocated over the step); "
               + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
                           for k, v in ms.items()))
         for key, t_ms, count in sorted(kernels, key=lambda k: -k[1])[:10]:
             print(f"   {t_ms:8.3f} ms {100 * t_ms / busy:5.1f}% x{count:<3d} {key[:90]}")
         if not kernels:
             print("   the profiler recorded no device time")
-        return {"step_ms": step_ms, "busy_ms": busy, **{f"{k}_ms": v for k, v in ms.items()}}
+        return {"step_ms": step_ms, "busy_ms": busy, "peak_gib": peak,
+                **{f"{k}_ms": v for k, v in ms.items()}}
 
     with phase("10 step profile"):
-        profile_step(trainer.step_fn, "")
+        prof = profile_step(trainer.step_fn, "")
         prof_p = profile_step(trainer_p.step_fn, " with use_pallas (K5/K6 in G)")
         prof_b = profile_step(trainer_b.step_fn, " with --fused_block (K7/K8)")
-    del trainer, trainer_p, trainer_b
+        prof_f = profile_step(trainer_f.step_fn, " with --gp_mode fwdrev")
+        prof_fb = profile_step(trainer_fb.step_fn, " with --fused_block --gp_mode fwdrev")
+        for label, rev, fwd in (("as published", prof, prof_f),
+                                ("with --fused_block", prof_b, prof_fb)):
+            print(f"   fwdrev against revrev {label}: step {fwd['step_ms']:.3f} / "
+                  f"{rev['step_ms']:.3f} ms ({fwd['step_ms'] / rev['step_ms']:.3f}x); kernels "
+                  f"busy {fwd['busy_ms']:.3f} / {rev['busy_ms']:.3f} ms; peak memory "
+                  f"{fwd['peak_gib']:.2f} / {rev['peak_gib']:.2f} GiB", flush=True)
+    del trainer, trainer_p, trainer_b, trainer_f, trainer_fb
     tmp.cleanup()
     return {"launches": launches, "launches_pallas": launches_p, "launches_block": launches_b,
             "launches_resumed": resumed["launches"], "pallas_rate": rate_p,
-            "pallas_profile": prof_p, "block_rate": rate_b, "block_profile": prof_b}
+            "pallas_profile": prof_p, "block_rate": rate_b, "block_profile": prof_b,
+            "launches_fwdrev": launches_f, "launches_block_fwdrev": launches_fb,
+            "fwdrev_rate": rate_f, "block_fwdrev_rate": rate_fb, "profile": prof,
+            "fwdrev_profile": prof_f, "block_fwdrev_profile": prof_fb,
+            "fwdrev_vs_revrev": {"published": modes_f, "block": modes_fb,
+                                 "critic_depth_2": modes_deep},
+            "layer_norm_trap": trap, "options": options}
 
 
 class _Tee:
@@ -2884,6 +3175,12 @@ def main() -> int:
                              "training_resumed": train["launches_resumed"]["fused_ln_mlp_ln_fwd"],
                              "training_fused_block":
                                  train["launches_block"]["fused_ln_mlp_ln_fwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["fused_ln_mlp_ln_fwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["fused_ln_mlp_ln_fwd"],
+                             "training_options": {
+                                 k: v["launches"]["fused_ln_mlp_ln_fwd"]
+                                 for k, v in train["options"].items()},
                              "checkpoint_selection": launches_select["fused_ln_mlp_ln_fwd"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k_ms,
@@ -2906,7 +3203,13 @@ def main() -> int:
                              "training": train["launches"]["fused_ln_mlp_ln_bwd"],
                              "training_resumed": train["launches_resumed"]["fused_ln_mlp_ln_bwd"],
                              "training_fused_block":
-                                 train["launches_block"]["fused_ln_mlp_ln_bwd"]},
+                                 train["launches_block"]["fused_ln_mlp_ln_bwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["fused_ln_mlp_ln_bwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["fused_ln_mlp_ln_bwd"],
+                             "training_options": {
+                                 k: v["launches"]["fused_ln_mlp_ln_bwd"]
+                                 for k, v in train["options"].items()}},
         "max_abs_err": k2["max_abs_err"],
         "ms": kb_ms,
         "plain_ms": pb_ms,
@@ -2931,7 +3234,10 @@ def main() -> int:
                              "training_use_pallas":
                                  train["launches_pallas"]["edge_attention_fwd"],
                              "training_fused_block":
-                                 train["launches_block"]["edge_attention_fwd"]},
+                                 train["launches_block"]["edge_attention_fwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["edge_attention_fwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["edge_attention_fwd"]},
         "max_abs_err": k56["max_abs_err"],
         "ms": k5_ms,
         "plain_ms": k5_p,
@@ -2953,7 +3259,10 @@ def main() -> int:
                              "training_use_pallas":
                                  train["launches_pallas"]["edge_attention_bwd"],
                              "training_fused_block":
-                                 train["launches_block"]["edge_attention_bwd"]},
+                                 train["launches_block"]["edge_attention_bwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["edge_attention_bwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["edge_attention_bwd"]},
         "max_abs_err": k56["bwd_max_abs_err"],
         "grad_rel_err": k56["grad_rel_err"],
         "ms": k6_ms,
@@ -2976,7 +3285,10 @@ def main() -> int:
                              "training": train["launches"]["fused_block_fwd"],
                              "training_use_pallas": train["launches_pallas"]["fused_block_fwd"],
                              "training_fused_block":
-                                 train["launches_block"]["fused_block_fwd"]},
+                                 train["launches_block"]["fused_block_fwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["fused_block_fwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["fused_block_fwd"]},
         "max_abs_err": k78["max_abs_err"],
         "ms": k7_ms,
         "plain_ms": k7_p,
@@ -2997,7 +3309,10 @@ def main() -> int:
                              "training": train["launches"]["fused_block_bwd"],
                              "training_use_pallas": train["launches_pallas"]["fused_block_bwd"],
                              "training_fused_block":
-                                 train["launches_block"]["fused_block_bwd"]},
+                                 train["launches_block"]["fused_block_bwd"],
+                             "training_fwdrev": train["launches_fwdrev"]["fused_block_bwd"],
+                             "training_fused_block_fwdrev":
+                                 train["launches_block_fwdrev"]["fused_block_bwd"]},
         "max_abs_err": k78["bwd_max_abs_err"],
         "grad_rel_err": k78["grad_rel_err"],
         "ms": k8_ms,

@@ -5,9 +5,8 @@ Copied from ``druggen_tpu/config.py`` (``TrainConfig``, ``InferenceConfig``,
 flag added to each: ``--device`` (default ``cuda``).  ``platform`` is kept so
 that the JAX CLI's command lines parse unchanged; the port ignores it and
 runs on ``device``.  Knobs of the JAX package that the port does not run
-(the parallel modes, ``split_step``, ``steps_per_dispatch > 1``,
-``scan_layers``, ``gp_mode=fwdrev``, ``--features``, ``--resume``) parse
-and raise ``NotImplementedError`` in the trainer.
+(the parallel modes: ``mesh_*``, ``distributed``) parse and raise
+``NotImplementedError`` in the trainer.
 ``InferenceConfig.use_pallas`` serves through the whole-generator kernel
 (K9).  ``TrainConfig.use_pallas`` runs the Generator's attention through
 the fused edge-attention kernels, ``TrainConfig.fused_block`` every encoder

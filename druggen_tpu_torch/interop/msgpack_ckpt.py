@@ -8,7 +8,8 @@ are msgpack extension objects of type 1, each holding a msgpack array
 plain Python (no ``msgpack`` package) into a nested dict of numpy arrays,
 bit-equal to ``flax.serialization.msgpack_restore``, and performs the
 stacked -> unrolled encoder conversion of ``load_params_auto``
-(``checkpoint.py:57-77``) so ``scan_layers`` checkpoints load too.
+(``checkpoint.py:57-77``) so ``scan_layers`` checkpoints load too, and
+:func:`stack_block_params` the other way, so that the port writes them.
 :func:`msgpack_serialize` writes a nested dict of numpy arrays in the same
 format, which ``flax.serialization.from_bytes`` reads.
 """
@@ -145,6 +146,29 @@ def unstack_block_params(tree):
         depth = _first_leaf(stacked).shape[0]
         return {f"block_{i}": _index_leaves(stacked, i) for i in range(depth)}
     return {k: unstack_block_params(v) for k, v in tree.items()}
+
+
+def stack_block_params(tree):
+    """``{'block_0': …, 'block_{d-1}': …}`` (unrolled) -> ``{'blocks':
+    {'block': stacked}}`` (scan_layers layout, each leaf with a leading
+    depth axis) anywhere in the tree; the inverse of
+    :func:`unstack_block_params` (numpy copy of
+    ``druggen_tpu.models.layers.stack_block_params``, the stacked subtree's
+    keys in the sorted order ``jax.tree_util.tree_map`` gives them)."""
+    if not isinstance(tree, dict):
+        return tree
+    keys = [k for k in tree if k.startswith("block_") and k[6:].isdigit()]
+    if keys and len(keys) == len(tree):
+        keys.sort(key=lambda k: int(k[6:]))
+        return {"blocks": {"block": _stack_leaves(
+            [stack_block_params(tree[k]) for k in keys])}}
+    return {k: stack_block_params(v) for k, v in tree.items()}
+
+
+def _stack_leaves(subs: list):
+    if isinstance(subs[0], dict):
+        return {k: _stack_leaves([s[k] for s in subs]) for k in sorted(subs[0])}
+    return np.stack([np.asarray(leaf) for leaf in subs])
 
 
 def _first_leaf(tree):

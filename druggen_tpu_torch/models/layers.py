@@ -58,17 +58,32 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(epsilon=1e-5, dtype=...)``: f32 statistics and
-    parameters, output in ``dtype`` (or the promoted input dtype)."""
+    parameters, output in ``dtype`` (or the promoted input dtype).
+
+    ``forward_mode``: compute it from differentiable primitives (mean,
+    variance, ``rsqrt``) in place of ``F.layer_norm``, for a pass that is
+    forward-differentiated and then differentiated in reverse (the
+    gradient penalty's JVP pass): torch's forward-mode rule of
+    ``F.layer_norm`` gives wrong parameter gradients upstream of it when
+    reverse mode differentiates through it (``layer_norm(x * w)``: the
+    gradient of ``w`` off by 0.75 relative on torch 2.13)."""
 
     def __init__(self, dim: int, dtype=None, eps: float = 1e-5):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.forward_mode = False
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
         out = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        if self.forward_mode:
+            xf = x.float()
+            xc = xf - xf.mean(-1, keepdim=True)
+            var = (xc * xc).mean(-1, keepdim=True)
+            y = xc * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
+            return y.to(out)
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(out)
@@ -276,12 +291,12 @@ class TransformerEncoder(nn.Module):
 
 @contextlib.contextmanager
 def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
-             use_pallas=...):
+             use_pallas=..., forward_mode=...):
     """Run ``model`` under other numerics, on the same ``Parameter``
     objects: ``dtype`` (None = the promoted input dtype, i.e. f32) for every
     :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` (False, True or
     ``"block"``) for every :class:`EncoderBlock`, ``f32_stats`` and ``use_pallas`` for every
-    :class:`GraphMHA`.
+    :class:`GraphMHA`, ``forward_mode`` for every :class:`LayerNorm`.
     An argument left out keeps the module's own value; all are restored on
     exit.  The counterpart of the JAX step's ``model.clone(...)``."""
     saved = []
@@ -289,7 +304,8 @@ def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
         for attr, value, kinds in (("dtype", dtype, (Dense, LayerNorm)),
                                    ("fused_mlp", fused_mlp, (EncoderBlock,)),
                                    ("f32_stats", f32_stats, (GraphMHA,)),
-                                   ("use_pallas", use_pallas, (GraphMHA,))):
+                                   ("use_pallas", use_pallas, (GraphMHA,)),
+                                   ("forward_mode", forward_mode, (LayerNorm,))):
             if value is not ... and isinstance(m, kinds):
                 saved.append((m, attr, getattr(m, attr)))
                 setattr(m, attr, value)

@@ -19,3 +19,20 @@ own rounding policy).  Kernels are
 compiled with ``nvcc`` at first use (:mod:`_build`) and loaded with
 ``ctypes``; nothing is built or imported when a module is imported.
 """
+
+import torch
+from torch.autograd import forward_ad
+
+
+def refuse_forward_mode(op: str) -> None:
+    """Raise when called inside a forward-mode pass (``torch.func.jvp`` or
+    any ``torch.func`` transform, or a ``forward_ad.dual_level``).  Every
+    fused op here is first-order only: its backward is hand-written and it
+    has no forward-mode rule, so the gradient penalty's JVP pass must run
+    the plain critic; a fused op reached there raises rather than quietly
+    running its plain version."""
+    if (torch._C._functorch.peek_interpreter_stack() is not None
+            or forward_ad._current_level >= 0):
+        raise RuntimeError(
+            f"{op} is first-order only and cannot run inside a forward-mode "
+            "(JVP) pass; run that pass on the plain modules")

@@ -64,7 +64,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from druggen_tpu_torch.ops import _build
+from druggen_tpu_torch.ops import _build, refuse_forward_mode
 from druggen_tpu_torch.ops.fused_mlp import SMEM_LIMIT, num_sms
 
 
@@ -602,7 +602,8 @@ def edge_modulated_attention_proj(q, k, v, edge_raw, we, be, woe, boe):
     Dense); we/be and woe/boe the ``e`` and ``out_e`` parameters ([in, out]).
     Returns ``(edge_out [B, N, N, D], node_agg [B, N, D])``: K5/K6 where
     :func:`uses_kernel` sends the shape, :func:`reference_attention_proj`
-    elsewhere."""
+    elsewhere.  Raises inside a forward-mode pass."""
+    refuse_forward_mode("the fused edge attention (K5/K6)")
     b, n, h, dk = q.shape
     d = h * dk
     if not uses_kernel(n, d, q.dtype):
@@ -854,7 +855,9 @@ def edge_modulated_attention(q, k, v, e):
     q, k, v [B, N, H, dk]; e [B, N, N, H, dk].  Returns ``(edge_pre
     [B, N, N, D], node_agg [B, N, D])``, :func:`reference_attention`'s
     outputs: K3/K4 where :func:`uses_v2_kernel` sends the shape,
-    :func:`reference_attention` elsewhere."""
+    :func:`reference_attention` elsewhere.  Raises inside a forward-mode
+    pass."""
+    refuse_forward_mode("the v2 edge attention (K3/K4)")
     b, n, h, dk = q.shape
     d = h * dk
     if not uses_v2_kernel(n, d, q.dtype):

@@ -56,7 +56,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from druggen_tpu_torch.ops import _build
+from druggen_tpu_torch.ops import _build, refuse_forward_mode
 from druggen_tpu_torch.ops.fused_attention import _device_index, _softmax_keys
 from druggen_tpu_torch.ops.fused_mlp import (
     KINK_REACH,
@@ -754,7 +754,8 @@ def fused_block_edge_stream(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1, w2, b2
     ``fused_block_edge_stream``: q, k, v ``[B, N, D]``, y ``[B, N, N, D]``
     -> ``(y_out [B, N, N, D], node_agg [B, N, D])``.  Weights [in, out].
     K7/K8 (their plain versions on the CPU) where :func:`uses_kernel` sends
-    the shape; the oracle elsewhere."""
+    the shape; the oracle elsewhere.  Raises inside a forward-mode pass."""
+    refuse_forward_mode("the megablock (K7/K8)")
     if not uses_kernel(q.shape[-1], q.device.type):
         return block_edge_stream_reference(q, k, v, y, we, be, woe, boe, g4, b4, w1, b1,
                                            w2, b2, g6, b6, heads)

@@ -55,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from druggen_tpu_torch.ops import _build
+from druggen_tpu_torch.ops import _build, refuse_forward_mode
 from druggen_tpu_torch.ops.fused_mlp import SMEM_LIMIT, num_sms
 from druggen_tpu_torch.ops.fused_mlp import launch_plan as mlp_launch_plan
 
@@ -653,7 +653,8 @@ def fused_generator_logits(G_or_weights, z_e, z_n, *, heads: int, debug: bool = 
     launches K9 (counted in ``fused_generator_logits.launches``, one a
     forward): on the Hopper route (:func:`hopper_route`) ``3 * depth + 1``
     device launches, else the generic kernels' ``2 * depth + 1``; or it
-    raises."""
+    raises.  It has no derivative: inside a forward-mode pass it raises."""
+    refuse_forward_mode("the whole-generator kernel (K9)")
     gw = GeneratorWeights.of(G_or_weights)
     if debug and not torch.equal(z_e, z_e.transpose(1, 2)):
         raise AssertionError("fused generator requires symmetric z_e")

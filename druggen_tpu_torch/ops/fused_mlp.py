@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from druggen_tpu_torch.ops import _build
+from druggen_tpu_torch.ops import _build, refuse_forward_mode
 
 _EPS = 1e-5
 # Dynamic shared memory one block may use on the H100 (227 KB).
@@ -561,7 +561,13 @@ class FusedLnMlpLn(torch.autograd.Function):
     """K1 forward, K2 backward (the JAX ``custom_vjp`` of ``_fused_op``).
 
     Saves only ``s`` and the parameters; the backward recomputes the
-    forward.  First-order only: a second derivative through it raises."""
+    forward.  First-order only: a second derivative through it raises, and
+    so does a call inside a forward-mode pass."""
+
+    @classmethod
+    def apply(cls, *args):
+        refuse_forward_mode("the fused edge tail (K1/K2)")
+        return super().apply(*args)
 
     @staticmethod
     def forward(ctx, s, g1, bl1, w1, b1, w2, b2, g2, bl2):

@@ -14,6 +14,11 @@ Everything is written in the JAX package's own format, flax msgpack
   three, so that a state file goes both ways between the packages.  The
   port's side of a state is ``{g, d, g_opt, d_opt, step}``
   (:func:`..interop.weights.gan_state_to_port`).
+
+``stacked=True`` writes every file in the stacked ``{'blocks': {'block':
+…}}`` encoder layout of JAX ``--scan_layers`` (``models/layers.py:443-486``),
+and :func:`restore_state` reads a state in that layout; the port's models are
+unrolled either way.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from druggen_tpu_torch.interop.msgpack_ckpt import (
     msgpack_restore,
     msgpack_serialize,
     read_flax_checkpoint,
+    stack_block_params,
 )
 from druggen_tpu_torch.interop.weights import (
     flax_discriminator_to_torch,
@@ -48,9 +54,12 @@ def _atomic_write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def save_params(path: str, variables: dict) -> None:
+def save_params(path: str, variables: dict, stacked: bool = False) -> None:
     """Write a flax parameter tree (``{'params': ...}``, numpy leaves), e.g.
-    ``{submodel}-G.ckpt`` for inference."""
+    ``{submodel}-G.ckpt`` for inference; in the stacked layout when
+    ``stacked``."""
+    if stacked:
+        variables = stack_block_params(variables)
     _atomic_write(path, msgpack_serialize(variables))
 
 
@@ -68,27 +77,31 @@ def load_params_auto(path: str) -> dict:
     return to_torch_tensors(flax_generator_to_torch(read_flax_checkpoint(path)))
 
 
-def save_generator(path: str, G) -> None:
-    save_params(path, torch_generator_to_flax(G.state_dict()))
+def save_generator(path: str, G, stacked: bool = False) -> None:
+    save_params(path, torch_generator_to_flax(G.state_dict()), stacked)
 
 
-def save_gd_params(model_dir: str, G, D, epoch: int, it: int) -> None:
+def save_gd_params(model_dir: str, G, D, epoch: int, it: int,
+                   stacked: bool = False) -> None:
     """Reference-style G/D exports (train.py:259-263 naming)."""
     os.makedirs(model_dir, exist_ok=True)
-    save_generator(os.path.join(model_dir, f"{epoch}-{it}-G.ckpt"), G)
+    save_generator(os.path.join(model_dir, f"{epoch}-{it}-G.ckpt"), G, stacked)
     save_params(os.path.join(model_dir, f"{epoch}-{it}-D.ckpt"),
-                torch_discriminator_to_flax(D.state_dict()))
+                torch_discriminator_to_flax(D.state_dict()), stacked)
 
 
 def save_state(model_dir: str, state: dict, keep: int = 3,
-               guarded: bool = True) -> str:
+               guarded: bool = True, stacked: bool = False) -> str:
     """Full-state checkpoint of the port's ``state`` (``{g, d, g_opt, d_opt,
     step}``) named by its step, in the JAX ``GANState`` layout (optimizer
-    states inside the guard's ``AllFiniteState`` when ``guarded``); prunes
-    to ``keep``."""
+    states inside the guard's ``AllFiniteState`` when ``guarded``; the
+    parameters and moments stacked when ``stacked``); prunes to ``keep``."""
     os.makedirs(model_dir, exist_ok=True)
     path = os.path.join(model_dir, f"state_{int(state['step'])}.msgpack")
-    _atomic_write(path, msgpack_serialize(port_to_gan_state(state, guarded)))
+    tree = port_to_gan_state(state, guarded)
+    if stacked:
+        tree = stack_block_params(tree)
+    _atomic_write(path, msgpack_serialize(tree))
     _prune(model_dir, keep)
     return path
 
@@ -146,20 +159,23 @@ def _structure_mismatch(tree, template, path: str = "") -> str | None:
 
 
 def restore_state(model_dir: str, template: dict, path: str | None = None,
-                  guarded: bool = True) -> dict | None:
+                  guarded: bool = True, stacked: bool = False) -> dict | None:
     """Restore the newest (or an explicit) full-state checkpoint, as the
     port's ``{g, d, g_opt, d_opt, step}``; None if there is none.
 
     ``template`` is the current state in the same form (and ``guarded`` its
-    optimizers' guard flag): a guarded/unguarded layout mismatch is migrated,
-    any other mismatch of keys or shapes raises ``ValueError`` naming the
-    checkpoint."""
+    optimizers' guard flag, ``stacked`` the layout the file is expected in,
+    as JAX's template fixes it): a guarded/unguarded layout mismatch is
+    migrated, any other mismatch of keys or shapes raises ``ValueError``
+    naming the checkpoint."""
     path = path or latest_state_path(model_dir)
     if path is None or not os.path.exists(path):
         return None
     with open(path, "rb") as f:
         raw = msgpack_restore(f.read())
     tstate = port_to_gan_state(template, guarded)
+    if stacked:
+        tstate = stack_block_params(tstate)
     raw = _migrate_guard_structure(raw, tstate)
     bad = _structure_mismatch(raw, tstate)
     if bad:

@@ -1,5 +1,5 @@
 """One WGAN-GP training iteration (port of ``druggen_tpu/train/step.py``
-``make_train_step`` :131-339).
+``make_train_step`` :131-339 and ``make_split_train_step`` :342-472).
 
 The reference's hot path (``train.py:302-397``, SURVEY.md §3.1): the
 Generator forward, the critic on the real, fake and interpolated graphs,
@@ -23,11 +23,26 @@ Numerics, per pass, on the same ``Parameter`` objects
 - the critic's first-order passes (D-step real and fake, G-step fake) with
   the fused tail when ``fused_critic``, the megablock when
   ``fused_critic="block"`` (JAX ``step.py:207-214``);
-- the gradient-penalty pass on the plain critic (it is differentiated
-  twice), in f32 with the interpolants cast before differentiation when
-  ``gp_f32`` (JAX :185-186, :236-260);
+- the gradient-penalty pass: under ``gp_mode="revrev"`` on the plain critic
+  (it is differentiated twice), in f32 with the interpolants cast before
+  differentiation when ``gp_f32`` (JAX :185-186, :236-260).  Under
+  ``gp_mode="fwdrev"`` (JAX :224-229, :288-301) its inner input-gradient
+  pass is first-order: the critic's first-order passes' routing (K1/K2 or
+  K7/K8), or the f32 plain critic when ``gp_f32``, with the cast at the
+  critic's input so that the input gradient comes back in the compute dtype
+  (JAX :244-250); its JVP pass is the plain critic in the compute dtype with
+  its LayerNorms in ``forward_mode``.  With critic dropout the two passes
+  draw the same masks: the JVP pass starts from the random state the inner
+  pass started from, as JAX feeds both ``k_ddrop``;
 - ``f32_stats``: softmax in f32, the fused tails, the megablock and the fused
   attention off (JAX :170-181).
+
+``split=True`` is JAX ``make_split_train_step``: a D step (:meth:`d_step`,
+the Generator's fake made under ``no_grad``) and then a G step
+(:meth:`g_step`, a fresh Generator forward) with nothing shared between
+them; under fwdrev both penalty passes take the penalty critic's routing, as
+JAX's split step does.  ``node_mode="dense"`` (``--features``): the node
+inputs arrive as float blocks ``[B, N, m_dim]`` in place of labels.
 """
 
 from __future__ import annotations
@@ -59,6 +74,19 @@ def _grads(loss, params):
                                materialize_grads=True)
 
 
+def _rng_state(device):
+    if device.type == "cuda":
+        return torch.cuda.get_rng_state(device)
+    return torch.get_rng_state()
+
+
+def _set_rng_state(device, state) -> None:
+    if device.type == "cuda":
+        torch.cuda.set_rng_state(state, device)
+    else:
+        torch.set_rng_state(state)
+
+
 class TrainStep:
     """``TrainStep(G, D, g_opt, d_opt, *, lambda_gp, m_dim, b_dim, ...)``.
 
@@ -76,17 +104,16 @@ class TrainStep:
                  node_mode: str = "labels", gp_mode: str = "revrev",
                  share_fake="auto", fused_critic: bool | str = False,
                  gp_f32: bool = False, f32_stats: bool = False,
-                 g_pallas: bool = False,
+                 g_pallas: bool = False, split: bool = False,
                  generator: torch.Generator | None = None):
-        if node_mode != "labels":
-            raise NotImplementedError("node_mode='dense' (--features) is not "
-                                      "ported yet (ROADMAP queue A)")
-        if gp_mode != "revrev":
-            raise NotImplementedError(f"gp_mode={gp_mode!r} is not ported yet "
-                                      "(ROADMAP queue A)")
+        if node_mode not in ("labels", "dense"):
+            raise ValueError(f"node_mode must be 'labels' or 'dense', got {node_mode!r}")
+        if gp_mode not in ("revrev", "fwdrev"):
+            raise ValueError(f"gp_mode must be 'revrev' or 'fwdrev', got {gp_mode!r}")
         self.G, self.D, self.g_opt, self.d_opt = G, D, g_opt, d_opt
         self.lambda_gp, self.m_dim, self.b_dim = lambda_gp, m_dim, b_dim
         self.submodel = submodel
+        self.node_mode, self.gp_mode, self.split = node_mode, gp_mode, bool(split)
         self.compute_dtype = compute_dtype
         dt = None if compute_dtype == torch.float32 else compute_dtype
         lowp = compute_dtype != torch.float32
@@ -101,8 +128,27 @@ class TrainStep:
         self.d_gp = dict(dtype=None if gp32 else dt, fused_mlp=False,
                          f32_stats=f32_stats, use_pallas=False)
         self.gp_cast = torch.float32 if gp32 else None
+        # fwdrev: the inner pass and the JVP pass (module docstring); the
+        # split step keeps both on the penalty critic (JAX :400-423)
+        plain = dict(dtype=dt, fused_mlp=False, f32_stats=f32_stats, use_pallas=False)
+        if self.split:
+            self.d_inner = self.d_gp
+            self.d_jvp = dict(self.d_gp, forward_mode=True)
+            jvp_cast = self.gp_cast
+        else:
+            self.d_inner = self.d_gp if gp32 else self.d_first
+            self.d_jvp = dict(plain, forward_mode=True)
+            jvp_cast = None
+        self._critic = self._critic_as(self.d_first)
+        # revrev casts the interpolants itself (gradient_penalty cast_dtype)
+        self._critic_gp = self._critic_as(self.d_gp)
+        self._critic_inner = self._critic_as(self.d_inner, self.gp_cast)
+        self._critic_jvp = self._critic_as(self.d_jvp, jvp_cast)
         g_dropout = _dropout_rate(G)
-        if share_fake == "auto":
+        self._d_dropout = _dropout_rate(D) > 0.0
+        if self.split:
+            share_fake = False
+        elif share_fake == "auto":
             share_fake = g_dropout == 0.0
         elif share_fake and g_dropout > 0.0:
             raise ValueError(
@@ -119,60 +165,112 @@ class TrainStep:
         with numerics(self.G, **self.g_numerics):
             return self.G(e, n)
 
-    def _critic(self, e, n):
-        with numerics(self.D, **self.d_first):
-            return self.D(e, n)
+    def _critic_as(self, kw: dict, cast=None):
+        """The critic under the numerics ``kw``, its inputs cast to ``cast``
+        at its boundary when given."""
+        def critic(e, n):
+            if cast is not None:
+                e, n = e.to(cast), n.to(cast)
+            with numerics(self.D, **kw):
+                return self.D(e, n)
+        return critic
 
-    def _critic_gp(self, e, n):
-        with numerics(self.D, **self.d_gp):
-            return self.D(e, n)
+    def _penalty_critics(self, device) -> dict:
+        """``discriminator_loss``'s penalty critics for this step's mode."""
+        if self.gp_mode == "revrev":
+            return {"critic_gp": self._critic_gp, "gp_cast": self.gp_cast}
+        if not self._d_dropout:
+            return {"critic_gp": self._critic_inner, "critic_jvp": self._critic_jvp}
+        start = {}
+
+        def inner(e, n):
+            start["rng"] = _rng_state(device)
+            return self._critic_inner(e, n)
+
+        def jvp(e, n):
+            _set_rng_state(device, start["rng"])
+            return self._critic_jvp(e, n)
+        return {"critic_gp": inner, "critic_jvp": jvp}
 
     def one_hot(self, labels, width):
         dev = next(self.G.parameters()).device
         labels = torch.as_tensor(labels).to(dev, non_blocking=True).long()
         return F.one_hot(labels, width).to(self.compute_dtype)
 
-    # ----------------------------------------------------------------------
-    def __call__(self, x_labels, a_labels, drug_x_labels, drug_a_labels,
-                 eps=None) -> dict:
-        self.G.train()
-        self.D.train()
-        x = self.one_hot(x_labels, self.m_dim)
+    def nodes(self, x):
+        """Node inputs: one-hot labels, or ``--features``' dense blocks."""
+        if self.node_mode == "dense":
+            dev = next(self.G.parameters()).device
+            return torch.as_tensor(x).to(dev, non_blocking=True).to(self.compute_dtype)
+        return self.one_hot(x, self.m_dim)
+
+    def _inputs(self, x_labels, a_labels, drug_x_labels, drug_a_labels):
+        x = self.nodes(x_labels)
         a = self.one_hot(a_labels, self.b_dim)
         if self.submodel == "NoTarget":
-            disc_x, disc_a = x, a
-        else:
-            disc_x = self.one_hot(drug_x_labels, self.m_dim)
-            disc_a = self.one_hot(drug_a_labels, self.b_dim)
+            return x, a, x, a
+        return x, a, self.nodes(drug_x_labels), self.one_hot(drug_a_labels, self.b_dim)
+
+    # ----------------------------------------------------------------------
+    def _d_update(self, x, a, disc_x, disc_a, eps, generator_for_d):
+        # reference train.py:352-368
         if eps is None:
             eps = draw_gp_noise(x.shape[0], disc_x.dtype, x.device,
                                 self.generator)
-
-        if self.share_fake:
-            # one G forward whose graph is kept for the G step; its detached
-            # logits feed the D step
-            outs = self._generate(a, x)
-            generator_for_d = lambda _e, _n: outs  # noqa: E731
-        else:
-            def generator_for_d(e, n):
-                with torch.no_grad():
-                    return self._generate(e, n)
-
-        # ---- D update (reference train.py:352-368)
         d_loss = discriminator_loss(generator_for_d, self._critic, disc_a,
                                     disc_x, a, x, self.lambda_gp, *eps,
-                                    critic_gp=self._critic_gp,
-                                    gp_cast=self.gp_cast)
+                                    gp_mode=self.gp_mode,
+                                    **self._penalty_critics(x.device))
         self.d_opt.step(_grads(d_loss, self.d_params))
+        return d_loss
 
-        # ---- G update against the updated critic (train.py:370-384); the
-        # critic pass sends gradients to the logits only
-        if self.share_fake:
-            node_logits, edge_logits = outs[2], outs[3]
-            g_loss = -self._critic(edge_logits, node_logits).mean()
-        else:
-            g_loss, outs = generator_loss(self._generate, self._critic, a, x)
-            node_logits, edge_logits = outs[2], outs[3]
+    def d_step(self, x_labels, a_labels, drug_x_labels, drug_a_labels,
+               eps=None):
+        """The split step's D update (JAX ``make_split_train_step``
+        ``d_step``): the fake from a Generator forward under ``no_grad``.
+        Returns ``d_loss`` (a device tensor, detached)."""
+        self.G.train()
+        self.D.train()
+        inputs = self._inputs(x_labels, a_labels, drug_x_labels, drug_a_labels)
+
+        def generator_for_d(e, n):
+            with torch.no_grad():
+                return self._generate(e, n)
+
+        return self._d_update(*inputs, eps, generator_for_d).detach()
+
+    def g_step(self, x_labels, a_labels) -> dict:
+        """The split step's G update (JAX ``g_step``) against the critic as
+        it stands: a fresh Generator forward.  Returns ``{"g_loss",
+        "node_logits", "edge_logits"}``."""
+        self.G.train()
+        self.D.train()
+        x, a = self.nodes(x_labels), self.one_hot(a_labels, self.b_dim)
+        # reference train.py:370-384; the critic pass sends gradients to the
+        # logits only
+        g_loss, outs = generator_loss(self._generate, self._critic, a, x)
+        self.g_opt.step(_grads(g_loss, self.g_params))
+        return {"g_loss": g_loss.detach(), "node_logits": outs[2].detach(),
+                "edge_logits": outs[3].detach()}
+
+    def __call__(self, x_labels, a_labels, drug_x_labels, drug_a_labels,
+                 eps=None) -> dict:
+        if not self.share_fake:
+            d_loss = self.d_step(x_labels, a_labels, drug_x_labels,
+                                 drug_a_labels, eps)
+            return {"d_loss": d_loss, **self.g_step(x_labels, a_labels)}
+        self.G.train()
+        self.D.train()
+        x, a, disc_x, disc_a = self._inputs(x_labels, a_labels, drug_x_labels,
+                                            drug_a_labels)
+        # one G forward whose graph is kept for the G step; its detached
+        # logits feed the D step
+        outs = self._generate(a, x)
+        d_loss = self._d_update(x, a, disc_x, disc_a, eps,
+                                lambda _e, _n: outs)
+        # G update against the updated critic (train.py:370-384)
+        node_logits, edge_logits = outs[2], outs[3]
+        g_loss = -self._critic(edge_logits, node_logits).mean()
         self.g_opt.step(_grads(g_loss, self.g_params))
         return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
                 "node_logits": node_logits.detach(),

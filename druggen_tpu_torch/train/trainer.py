@@ -33,9 +33,21 @@ dropout masks) are seeded from ``(seed, step)`` (:func:`step_seed`), as JAX
 folds the step into its key, so a resumed run draws what an uninterrupted
 one does.
 
+The JAX trainer's single-device options: ``gp_mode="fwdrev"`` (the
+reverse-over-forward penalty, :mod:`.step`); ``split_step`` (the D and the G
+update as two steps, the loss window halved; ``steps_per_dispatch`` is then
+ignored, as JAX prints); ``steps_per_dispatch K`` (K batches a work item, run
+as K eager steps, the cadence, the logged losses and the checkpoint names on
+the steps JAX puts them on, :meth:`Trainer._work_items`); ``scan_layers``
+(the models stay unrolled, which computes the same function; the G/D exports
+and the state files are written in the stacked ``{'blocks': {'block': …}}``
+layout of JAX ``--scan_layers``, and ``--resume`` reads it); ``--features``
+(dense node blocks of ``m_dim + 54`` in place of one-hot labels, featurised
+on the Python path as in JAX; the cadence decodes the atom labels from the
+one-hot prefix).
+
 Not ported (each raises ``NotImplementedError``): the parallel modes
-(``mesh_*``, ``distributed``), ``split_step``, ``steps_per_dispatch > 1``,
-``scan_layers``, ``gp_mode="fwdrev"`` and ``--features``.
+(``mesh_*``, ``distributed``).
 """
 
 from __future__ import annotations
@@ -76,10 +88,6 @@ def _reject_unported(cfg: TrainConfig) -> None:
     unported = {
         "mesh_model": cfg.mesh_model > 1, "mesh_node": cfg.mesh_node > 1,
         "mesh_data": cfg.mesh_data > 1, "distributed": cfg.distributed,
-        "split_step": cfg.split_step,
-        "steps_per_dispatch": cfg.steps_per_dispatch > 1,
-        "scan_layers": cfg.scan_layers, "gp_mode": cfg.gp_mode != "revrev",
-        "features": cfg.features,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -106,10 +114,14 @@ class Trainer:
             cache_dir=os.path.join(cfg.mol_data_dir, "vocab"),
             union_ref12=cfg.vocab_ref12)
         self.data = data if data is not None else load_dataset(
-            cfg.raw_file, self.vocab, cfg.max_atom, cfg.mol_data_dir)
+            cfg.raw_file, self.vocab, cfg.max_atom, cfg.mol_data_dir,
+            features=cfg.features)
         self.drug_data = drug_data if drug_data is not None else load_dataset(
-            cfg.drug_raw_file, self.vocab, cfg.max_atom, cfg.drug_data_dir)
-        self.m_dim = self.vocab.m_dim
+            cfg.drug_raw_file, self.vocab, cfg.max_atom, cfg.drug_data_dir,
+            features=cfg.features)
+        # shape inference (reference train.py:117-119): the atom types, or
+        # the one-hot + feature block's width
+        self.m_dim = self.vocab.m_dim + self.data.feature_dim
         self.b_dim = self.vocab.b_dim
         self.vertexes = int(self.data.x.shape[1])
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
@@ -175,6 +187,8 @@ class Trainer:
         self._numerics_tier = start_tier
         self._ladder = ladder
         self._ladder_exhausted_warned = False
+        if cfg.split_step and cfg.steps_per_dispatch > 1:
+            print("split_step: steps_per_dispatch ignored")
         self._build_step_fns(start_tier)
 
         # ---- dirs + logging (reference train.py:283-289)
@@ -206,7 +220,7 @@ class Trainer:
             else:
                 restored = ckpt.restore_state(
                     cfg.resume_directory or self.model_dir, self.state(),
-                    guarded=cfg.nonfinite_guard)
+                    guarded=cfg.nonfinite_guard, stacked=cfg.scan_layers)
                 if restored is not None:
                     self.load_state(restored)
                     print(f"auto-resumed at step {self.step}")
@@ -275,8 +289,9 @@ class Trainer:
         self.step_fn = TrainStep(self.G, self.D, self.g_opt, self.d_opt,
                                  lambda_gp=cfg.lambda_gp, m_dim=self.m_dim,
                                  b_dim=self.b_dim, submodel=cfg.submodel,
-                                 gp_mode=cfg.gp_mode, generator=self.gp_noise,
-                                 **kw)
+                                 node_mode="dense" if cfg.features else "labels",
+                                 gp_mode=cfg.gp_mode, split=cfg.split_step,
+                                 generator=self.gp_noise, **kw)
 
     def _escalate_numerics(self) -> None:
         """Advance to the next numerics-ladder tier (JAX trainer.py:342):
@@ -300,9 +315,12 @@ class Trainer:
               f"tier {tier}: {names[tier]}", flush=True)
         self._build_step_fns(tier)
 
-    def _work_items(self, mol_iter, drug_iter, start_step: int = 0):
-        """Per-step work stream ``(epoch, it, arrays)`` (JAX
-        ``_work_items`` :370 with one step a dispatch); host-side batch
+    def _work_items(self, mol_iter, drug_iter, K: int = 1, start_step: int = 0):
+        """Work stream ``(epoch, it, n_steps, batches)``: ``batches`` holds
+        ``n_steps`` tuples ``(x, a, dx, da)`` and ``it`` is the epoch
+        iteration of the last of them (JAX ``_work_items`` :370-421, whose
+        ``(epoch, it, n_steps)`` this yields).  K batches a work item, and
+        an epoch's tail shorter than K as single steps.  Host-side batch
         assembly that a prefetch thread overlaps with the device.
 
         ``start_step`` resumes the schedule mid-run: epochs and iterations
@@ -315,14 +333,27 @@ class Trainer:
         for _ in range(start_step):     # the drug stream runs on across
             next(drug_iter)             # epochs: advance by ALL done steps
         for epoch in range(start_epoch, self.cfg.epoch):
-            batches = enumerate(mol_iter.epoch_batches(epoch))
+            batch_stream = mol_iter.epoch_batches(epoch)
+            it = -1
             if epoch == start_epoch and skip:
+                it = skip - 1
                 for _ in range(skip):   # mol stream alignment
-                    if next(batches, None) is None:
+                    if next(batch_stream, None) is None:
                         break
-            for it, (x, a) in batches:
-                dx, da = next(drug_iter)
-                yield epoch, it, (x, a, dx, da)
+            for x, a in batch_stream:
+                batches = [(x, a, *next(drug_iter))]
+                while len(batches) < K:
+                    nxt = next(batch_stream, None)
+                    if nxt is None:
+                        break
+                    batches.append((*nxt, *next(drug_iter)))
+                if len(batches) == K:
+                    it += K
+                    yield epoch, it, K, batches
+                else:
+                    for batch in batches:   # tail smaller than K
+                        it += 1
+                        yield epoch, it, 1, [batch]
 
     def train(self, time_steps: bool = False) -> "Trainer":
         """Run the schedule.  ``time_steps``: end every step with
@@ -347,7 +378,10 @@ class Trainer:
             print(f"resume: step {self.step} already completes the "
                   f"{cfg.epoch}-epoch schedule; nothing to do")
             return self
-        flush_every = max(cfg.log_flush_steps, 1)
+        # the split step runs two updates a step: the window is halved (JAX
+        # trainer.py:459-462)
+        flush_every = max(cfg.log_flush_steps // (2 if cfg.split_step else 1), 1)
+        K = 1 if cfg.split_step else max(cfg.steps_per_dispatch, 1)
         pending: list[tuple] = []   # (epoch, it, step, device metrics)
 
         def flush() -> None:
@@ -363,35 +397,42 @@ class Trainer:
                                       and math.isfinite(g_val))
                 self.logger.log({"epoch": ep, "iter": it_,
                                  "d_loss": d_val, "g_loss": g_val},
-                                step=st_, echo=(it_ % 50 == 0))
+                                step=st_, echo=(it_ % 50 < K))
             pending.clear()
             if saw_nonfinite:
                 self._escalate_numerics()
 
         sync = time_steps and self.device.type == "cuda"
-        work = prefetch(self._work_items(mol_iter, drug_iter,
+        work = prefetch(self._work_items(mol_iter, drug_iter, K,
                                          start_step=self.step),
                         cfg.prefetch_depth)
-        for epoch, it, (x, a, dx, da) in work:
-            seed = step_seed(cfg.seed, self.step)
-            self.gp_noise.manual_seed(seed)
-            if self._seeds_dropout:
-                torch.manual_seed(seed)
-            t0 = time.perf_counter()
-            out = self.step_fn(x, a, dx, da)
-            if sync:
-                torch.cuda.synchronize(self.device)
-            if time_steps:
-                self.step_seconds.append(time.perf_counter() - t0)
-            self.step += 1
+        for epoch, it, n_steps, batches in work:
+            for x, a, dx, da in batches:
+                seed = step_seed(cfg.seed, self.step)
+                self.gp_noise.manual_seed(seed)
+                if self._seeds_dropout:
+                    torch.manual_seed(seed)
+                t0 = time.perf_counter()
+                out = self.step_fn(x, a, dx, da)
+                if sync:
+                    torch.cuda.synchronize(self.device)
+                if time_steps:
+                    self.step_seconds.append(time.perf_counter() - t0)
+                self.step += 1
+            # a work item logs its last step's losses (JAX logs the last of a
+            # dispatch's K)
             pending.append((epoch, it, self.step, out))
-            at_cadence = self.step % cfg.log_sample_step == 0
+            at_cadence = self.step % cfg.log_sample_step < n_steps
             if len(pending) >= flush_every or at_cadence:
                 flush()
             if at_cadence:
                 node_logits = out["node_logits"].float().cpu().numpy()
                 edge_logits = out["edge_logits"].float().cpu().numpy()
-                chem = training_metrics(node_logits, edge_logits, x, a,
+                # --features: x is a dense block; the atom labels are its
+                # one-hot prefix's
+                x_labels = (np.argmax(x[..., :self.vocab.m_dim], -1)
+                            if cfg.features else x)
+                chem = training_metrics(node_logits, edge_logits, x_labels, a,
                                         self.vocab, self.drug_smiles,
                                         self.drug_fps, max_atom=self.vertexes)
                 self.logger.log(chem, step=self.step)
@@ -401,15 +442,18 @@ class Trainer:
                 print(f"samples saved at epoch {epoch} iteration {it} "
                       f"({n_valid} valid)", flush=True)
                 ckpt.save_gd_params(self.model_dir, self.G, self.D,
-                                    epoch + 1, it + 1)
+                                    epoch + 1, it + 1, stacked=cfg.scan_layers)
                 ckpt.save_state(self.model_dir, self.state(),
-                                guarded=cfg.nonfinite_guard)
+                                guarded=cfg.nonfinite_guard,
+                                stacked=cfg.scan_layers)
                 print(f"model saved at epoch {epoch} iteration {it}",
                       flush=True)
         flush()
         # final checkpoint + submodel export for inference
-        ckpt.save_state(self.model_dir, self.state(), guarded=cfg.nonfinite_guard)
+        ckpt.save_state(self.model_dir, self.state(), guarded=cfg.nonfinite_guard,
+                        stacked=cfg.scan_layers)
         ckpt.save_generator(os.path.join(self.model_dir,
-                                         f"{cfg.submodel}-G.ckpt"), self.G)
+                                         f"{cfg.submodel}-G.ckpt"), self.G,
+                            stacked=cfg.scan_layers)
         self.logger.finish()
         return self
