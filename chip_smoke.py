@@ -131,6 +131,32 @@ exits non-zero without printing a result line:
                surrogate FCD and with that ChemNet as ``.npz``: the JAX
                evaluator's keys in order, each finite and in range; host
                seconds by part.
+14. neural correctors — 14a: the two correctors the JAX package trained
+               (``experiments/corrector_r4``, native and reference topology,
+               full width) loaded on the card and on the CPU: teacher-forced
+               logits of 16 held-out pairs held at ``TOL_CHEMNET`` (f32, TF32
+               off), the greedy strings of 8 sources equal; the 122 held-out
+               sources decoded on the card (seconds, SMILES a second, peak
+               memory) and ``evaluate_corrector``'s six metrics beside the
+               recorded ``eval.json``.  A checkout without those weights (a
+               ``git archive``: ``.gitattributes``) holds 14b's correctors
+               instead, after 14b.  14b: ``train_corrector.main --arch both``
+               at full width (hid 256, 3 layers, 8 heads, pf 512, max-len
+               202), batch 32, 300 steps, mining 4,096 graphs of a
+               JAX-trained Generator (phase 8's last export, which gives no
+               pair, mined on one batch first): pairs mined, losses finite and falling, the JAX
+               file layout read back with the same translations, ``eval.json``
+               in range; step ms (CUDA events) and peak memory per topology.
+               14c: ``SmilesCorrector.default()`` from
+               ``$DRUGGEN_CORRECTOR_CKPT`` and from
+               ``$DRUGGEN_REFERENCE_CORRECTOR``; ``correct()`` on 4c's
+               delivered set and the held-out sources: one ``translate_batch``
+               on the card, the rescued count, the rule path's output on the
+               rescued set.  14d: the trained r2_scale Generator exported by
+               ``import_torch_ckpt --reverse``, served from the reference
+               ``.ckpt`` plain and with ``module.``: a batch of 512, labels
+               bit-equal to the msgpack engine's; one forward under
+               ``utils/profiling.trace`` writes a trace.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -228,6 +254,32 @@ EVAL_RANGES = {"validity": (0, 1), "uniqueness": (0, 1), "novelty_ref1": (0, 1),
                "veber_std": (0, 2), "pains_pass_rate": (0, 1)}
 EVAL_COUNTS = ("fcd_is_literal", "n_generated", "n_reference_1",
                "n_reference_1_kernel_sample", "ref1_sample_seed", "n_reference_2")
+# phase 14, the neural SMILES correctors.  14a: the two correctors the JAX
+# package trained at full width (experiments/corrector_r4: vocab 82, hid 256,
+# 8 heads, pf 512, 3 layers, max_len 202), teacher-forced logits of the first
+# CORRECTOR_TF_PAIRS held-out pairs card against CPU at TOL_CHEMNET (f32, TF32
+# off), greedy strings of the first CORRECTOR_GREEDY equal, all 122 held-out
+# sources decoded on the card and evaluate_corrector's six metrics printed
+# beside eval.json's (JAX decoded on the TPU at its matmul precision: printed,
+# not held).  14b: train_corrector.main --arch both at that width, batch
+# CORRECTOR_BATCH, CORRECTOR_STEPS steps, over phase 8's 8,192 molecules and
+# the drugs (its vocabulary), mining CORRECTOR_GEN_SAMPLES graphs of
+# CORRECTOR_GEN_CKPT: the JAX-trained NoTarget Generator of the same
+# vocabulary, whose failures are repairable (phase 8's 16-step Generator
+# gives none; 14b shows its mining on one batch).
+CORRECTOR_R4 = os.path.join(REPO, "experiments", "corrector_r4")
+CORRECTOR_TF_PAIRS = 16
+CORRECTOR_GREEDY = 8
+CORRECTOR_STEPS = 300
+CORRECTOR_BATCH = 32
+CORRECTOR_GEN_SAMPLES = 4096
+CORRECTOR_GEN_CKPT = os.path.join(
+    REPO, "experiments", "r2_notarget", "models",
+    "r2_notarget_NoTarget_glr1e-05_dlr1e-05_dim128_depth1_heads8_batch512_epoch15"
+    "_datasetchembl_like_150k45_dropout0.0", "NoTarget-G.ckpt")
+# the JAX tool's evaluate_corrector keys, in order (scripts/train_corrector.py:119-126)
+CORRECTOR_EVAL_KEYS = ("n_holdout", "validity_before", "validity_after", "exact_repair_rate",
+                       "mean_tanimoto_to_target", "n_similarity_pairs")
 # kernel vs plain, compared in f32.  bf16: the sums run in another order and
 # an output of |y| <= 4 is worth ~2 bf16 ulps (2 * 2^-6); f32: order only.
 TOL_BF16_MAX, TOL_BF16_MEAN, TOL_F32_MAX = 3e-2, 2e-3, 1e-4
@@ -2280,6 +2332,346 @@ def offline_evaluation(post_dir: str, gen_csv: str, ref1: str, name: str,
               flush=True)
 
 
+def corrector_ids(corr, smiles: list[str], target: bool = False):
+    """Token ids of ``smiles`` as the corrector's training encoded them: the
+    native tokenizer's rows (``max_len`` wide), or the reference topology's
+    source rows and, for ``target``, its reversed target rows."""
+    from druggen_tpu_torch.infer.seq2seq import tokenize
+    from druggen_tpu_torch.infer.seq2seq_ref import EOS, PAD, SOS, UNK
+
+    if hasattr(corr, "tokenizer"):
+        import numpy as np
+
+        return torch.as_tensor(np.stack([corr.tokenizer.encode(s, corr.model.max_len)
+                                         for s in smiles])).long()
+    if not target:
+        return torch.as_tensor(corr._encode_src(smiles)).long()
+    rows = torch.full((len(smiles), corr.max_len + 2), PAD, dtype=torch.long)
+    for r, smi in enumerate(smiles):
+        ids = [SOS] + [corr.src_stoi.get(t, UNK)
+                       for t in tokenize(smi)[:corr.max_len][::-1]] + [EOS]
+        rows[r, :len(ids)] = torch.tensor(ids)
+    return rows
+
+
+def hold_corrector(label: str, card, cpu, holdout: list, recorded: dict | None,
+                   name: str, smi_line: str) -> dict:
+    """14a for one corrector: teacher-forced logits of the first
+    ``CORRECTOR_TF_PAIRS`` held-out pairs, card against CPU in f32 (TF32
+    off) at ``TOL_CHEMNET``; greedy strings of the first
+    ``CORRECTOR_GREEDY`` sources equal on both; every source decoded on the
+    card (seconds, SMILES a second, peak memory) and ``evaluate_corrector``'s
+    six metrics, printed beside ``recorded`` (the JAX run's eval.json)."""
+    from druggen_tpu_torch.train_corrector import evaluate_corrector
+
+    pairs = holdout[:CORRECTOR_TF_PAIRS]
+    src = corrector_ids(card, [s for s, _ in pairs])
+    tgt = corrector_ids(card, [t for _, t in pairs], target=True)
+    with torch.no_grad():
+        want = cpu.model(src, tgt)
+        got = card.model(src.cuda(), tgt.cuda()).cpu()
+    rtol, atol = TOL_CHEMNET
+    err = (got - want).abs()
+    excess = (err - rtol * want.abs()).max().item()
+    print(f"   {label}: teacher-forced logits of {len(pairs)} held-out pairs "
+          f"{tuple(want.shape)}, card vs CPU (f32, TF32 off): max |err| {err.max():.3e} "
+          f"(largest |logit| {want.abs().max():.3e}); max |err| - {rtol} |ref| "
+          f"{excess:.3e}, held at {atol}")
+    if not (torch.isfinite(got).all() and excess <= atol):
+        raise AssertionError(f"{label}: logits on the card {excess:.3e} beyond {atol}")
+    sources = [s for s, _ in holdout]
+    t0 = time.perf_counter()
+    cpu_out = cpu.translate_batch(sources[:CORRECTOR_GREEDY])
+    cpu_s = time.perf_counter() - t0
+    card_first = card.translate_batch(sources[:CORRECTOR_GREEDY])
+    print(f"   {label}: greedy strings of the first {CORRECTOR_GREEDY} sources equal on "
+          f"card and CPU: {card_first == cpu_out} (CPU decode {cpu_s:.2f} s)")
+    if card_first != cpu_out:
+        raise AssertionError(f"{label}: greedy strings differ: {card_first} vs {cpu_out}")
+    card.translate_batch(sources[:2])                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = card.translate_batch(sources)
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    metrics = evaluate_corrector(SimpleNamespace(translate_batch=lambda xs: outs[:len(xs)]),
+                                 holdout)
+    print(f"   {label}: decode of {len(sources)} sources on {name} ({smi_line}): "
+          f"{decode_s:.3f} s, {len(sources) / decode_s:.1f} SMILES/s, peak memory "
+          f"{peak:.1f} MiB (max_memory_allocated)")
+    for key, value in metrics.items():
+        was = "" if recorded is None else f" (JAX on the TPU: {recorded[key]})"
+        print(f"      {key} {value}{was}")
+    check_corrector_metrics(label, metrics, len(holdout))
+    return {"decode_s": decode_s, "smiles_per_s": len(sources) / decode_s,
+            "peak_mib": peak, "metrics": metrics, "max_abs_err": err.max().item()}
+
+
+def check_corrector_metrics(label: str, metrics: dict, n: int) -> None:
+    if list(metrics) != list(CORRECTOR_EVAL_KEYS) or metrics["n_holdout"] != n:
+        raise AssertionError(f"{label}: evaluate_corrector gave {list(metrics)}")
+    for key in CORRECTOR_EVAL_KEYS[1:5]:
+        v = metrics[key]
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"{label}: {key} = {v!r} not in [0, 1]")
+    if not 0 <= metrics["n_similarity_pairs"] <= n:
+        raise AssertionError(f"{label}: n_similarity_pairs {metrics['n_similarity_pairs']}")
+
+
+@contextlib.contextmanager
+def peak_per_call(module, attr: str, into: dict):
+    """Wrap ``module.attr`` so that each call records its peak device memory
+    (MiB, from a reset) and host seconds into ``into[attr]``."""
+    fn = getattr(module, attr)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into[attr] = {"peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                      "seconds": time.perf_counter() - t0}
+        return out
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
+def neural_correctors(post_dir: str, delivered_csv: str, ref1: str, name: str,
+                      smi_line: str) -> dict:
+    """Phase 14: the neural SMILES correctors on the card.  14a the JAX-trained
+    correctors (card against CPU, the held-out metrics), 14b
+    ``train_corrector.main --arch both`` at full width, 14c serving's hook,
+    14d a reference checkpoint served and one forward traced."""
+    from druggen_tpu_torch import import_torch_ckpt, train_corrector
+    from druggen_tpu_torch.chem.smiles import mol_from_smiles
+    from druggen_tpu_torch.chem.vocab import Vocab
+    from druggen_tpu_torch.config import InferenceConfig
+    from druggen_tpu_torch.data.dataset import BatchIterator
+    from druggen_tpu_torch.infer import seq2seq
+    from druggen_tpu_torch.infer.corrector import CKPT_VAR, REFERENCE_VAR, SmilesCorrector
+    from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.infer.seq2seq import Seq2SeqCorrector
+    from druggen_tpu_torch.interop.corrector_ckpt import ReferenceCorrector
+    from druggen_tpu_torch.utils import profiling
+
+    work = os.path.join(post_dir, "correctors")
+    os.makedirs(work)
+    out = {}
+
+    def phase_14a(native_dir: str, ref_dir: str, holdout: list, recorded: bool):
+        for label, load, where in (
+                ("native", Seq2SeqCorrector.load, native_dir),
+                ("reference topology", ReferenceCorrector.load_trained, ref_dir)):
+            t0 = time.perf_counter()
+            card, cpu = load(where, device="cuda"), load(where, device="cpu")
+            print(f"   {label} corrector {os.path.relpath(where, REPO) if where.startswith(REPO) else where}: "
+                  f"loaded on card and CPU in {time.perf_counter() - t0:.2f} s")
+            with open(os.path.join(where, "eval.json")) as f:
+                eval_json = json.load(f) if recorded else None
+            out[f"14a {label}"] = hold_corrector(label, card, cpu, holdout, eval_json, name,
+                                                 smi_line)
+            del card, cpu
+
+    r4_weights = [os.path.join(CORRECTOR_R4, "params.msgpack"),
+                  os.path.join(CORRECTOR_R4, "ref_arch", "params.msgpack")]
+    with open(os.path.join(CORRECTOR_R4, "holdout_pairs.json")) as f:
+        r4_holdout = json.load(f)
+    have_r4 = all(os.path.exists(p) for p in r4_weights)
+    if have_r4:
+        with phase("14a the JAX-trained correctors (experiments/corrector_r4) on the card"):
+            phase_14a(CORRECTOR_R4, os.path.join(CORRECTOR_R4, "ref_arch"), r4_holdout, True)
+    else:
+        print("   14a: this checkout has no corrector_r4 weights (a git archive leaves them "
+              "out, .gitattributes); 14a holds 14b's correctors instead", flush=True)
+
+    with phase("14b train_corrector --arch both at full width on the card"):
+        # the vocabulary of phase 8's run, where mine_failure_pairs looks for it
+        vocab_dir = os.path.join(os.path.dirname(ref1), "vocab")
+        os.makedirs(vocab_dir, exist_ok=True)
+        shutil.copy(TRAIN_VOCAB_JSON, os.path.join(
+            vocab_dir, f"vocab_akt1_drugs_2607_chembl_like_{TRAIN_MOLECULES}_45.json"))
+        corpus = [line.strip() for line in open(ref1) if line.strip()]
+        # phase 8's last cadence export, 16 steps from initialisation, gives
+        # no repairable failure: shown on one batch, then the run mines a
+        # JAX-trained Generator of the same vocabulary whose failures repair
+        probe = SimpleNamespace(smiles=ref1, drug_smiles=DRUG_FILE, max_atom=45,
+                                gen_samples=256, gen_ckpt=os.path.join(
+                                    post_dir, "models", f"1-{2 * TRAIN_CADENCE}-G.ckpt"),
+                                gen_dim=DIM, gen_depth=1, gen_heads=HEADS, gen_mlp_ratio=3,
+                                device="cuda")
+        t0 = time.perf_counter()
+        probe_pairs = train_corrector.mine_failure_pairs(probe, corpus)
+        print(f"   phase 8's 1-{2 * TRAIN_CADENCE}-G.ckpt, 256 samples: {len(probe_pairs)} "
+              f"pairs in {time.perf_counter() - t0:.2f} s (host)", flush=True)
+        out_dir = os.path.join(work, "corrector")
+        argv = ["--smiles", ref1, "--drug-smiles", DRUG_FILE, "--gen-ckpt", CORRECTOR_GEN_CKPT,
+                "--gen-samples", str(CORRECTOR_GEN_SAMPLES), "--steps", str(CORRECTOR_STEPS),
+                "--batch", str(CORRECTOR_BATCH), "--max-len", "202", "--hid", "256",
+                "--layers", "3", "--arch", "both", "--out", out_dir, "--device", "cuda"]
+        print(f"   python -m druggen_tpu_torch.train_corrector {' '.join(argv)}", flush=True)
+        peaks = {}
+        t0 = time.perf_counter()
+        with peak_per_call(seq2seq, "train_corrector", peaks), \
+                peak_per_call(train_corrector, "train_reference_corrector", peaks):
+            result = train_corrector.main(argv)
+        wall = time.perf_counter() - t0
+        print(f"   main(): {wall:.2f} s; {result['pairs']} mined pairs, "
+              f"{len(result['holdout'])} held out")
+        if result["pairs"] <= 0:
+            raise AssertionError("no failure pair was mined")
+        ref_dir = os.path.join(out_dir, "ref_arch")
+        for (label, corr), key in zip((("native", result["native"]),
+                                       ("reference topology", result["reference"])),
+                                      ("train_corrector", "train_reference_corrector")):
+            losses = corr.train_log["losses"]
+            head, tail = statistics.mean(losses[:50]), statistics.mean(losses[-50:])
+            print(f"   {label}: {len(losses)} steps of batch {CORRECTOR_BATCH} on {name} "
+                  f"({smi_line}): step {corr.train_log['step_ms']:.3f} ms (CUDA events, "
+                  f"mean of steps 2-{len(losses)}); loss first 50 {head:.4f}, last 50 "
+                  f"{tail:.4f}; training call {peaks[key]['seconds']:.2f} s, peak memory "
+                  f"{peaks[key]['peak_mib']:.1f} MiB")
+            if len(losses) != CORRECTOR_STEPS or not all(map(math.isfinite, losses)) \
+                    or not tail < head:
+                raise AssertionError(f"{label}: losses not finite or not falling")
+            out[f"14b {label}"] = {"step_ms": corr.train_log["step_ms"],
+                                   "peak_mib": peaks[key]["peak_mib"],
+                                   "loss_first50": head, "loss_last50": tail}
+        layout = {out_dir: ("meta.json", "tokenizer.json", "params.msgpack", "eval.json",
+                            "holdout_pairs.json"),
+                  ref_dir: ("params.msgpack", "vocab.json", "eval.json")}
+        missing = [os.path.join(d, f) for d, names in layout.items() for f in names
+                   if not os.path.exists(os.path.join(d, f))]
+        if missing:
+            raise AssertionError(f"missing files of the JAX layout: {missing}")
+        sources = [s for s, _ in result["holdout"][:CORRECTOR_GREEDY]]
+        for label, corr, back in (
+                ("native", result["native"], Seq2SeqCorrector.load(out_dir, device="cuda")),
+                ("reference topology", result["reference"],
+                 ReferenceCorrector.load_trained(ref_dir, device="cuda"))):
+            same = back.translate_batch(sources) == corr.translate_batch(sources)
+            print(f"   {label}: read back from its files, the same translations of "
+                  f"{len(sources)} held-out sources: {same}")
+            if not same:
+                raise AssertionError(f"{label}: the files do not translate as the trained model")
+        for d, label in ((out_dir, "native"), (ref_dir, "reference topology")):
+            with open(os.path.join(d, "eval.json")) as f:
+                metrics = json.load(f)
+            check_corrector_metrics(label, metrics, len(result["holdout"]))
+            print(f"   {label} eval.json: {metrics}", flush=True)
+        del result
+
+    if not have_r4:
+        with open(os.path.join(out_dir, "holdout_pairs.json")) as f:
+            r4_holdout = json.load(f)
+        with phase("14a 14b's correctors on the card"):
+            phase_14a(out_dir, ref_dir, r4_holdout, False)
+
+    with phase("14c serving's hook"):
+        with open(delivered_csv) as f:
+            delivered = [row["SMILES"] for row in csv.DictReader(f)]
+        batch = delivered + [s for s, _ in r4_holdout]
+        valid = [s for s in batch if mol_from_smiles(s) is not None]
+        invalid = [s for s in batch if mol_from_smiles(s) is None]
+        rule = SmilesCorrector()
+        saved = {v: os.environ.pop(v, None) for v in (CKPT_VAR, REFERENCE_VAR)}
+        try:
+            for var, value in ((CKPT_VAR, out_dir), (REFERENCE_VAR, ref_dir)):
+                os.environ[var] = value
+                corr = SmilesCorrector.default(device="cuda")
+                calls = []
+                translate = corr.neural.translate_batch
+
+                def spy(xs, translate=translate, neural=corr.neural):
+                    fixes = translate(xs)
+                    calls.append((len(xs), neural.device.type, fixes))
+                    return fixes
+
+                corr.neural.translate_batch = spy
+                t0 = time.perf_counter()
+                got = corr.correct(batch)
+                wall = time.perf_counter() - t0
+                if [c[:2] for c in calls] != [(len(invalid), "cuda")]:
+                    raise AssertionError(f"${var}: translate_batch calls {[c[:2] for c in calls]}")
+                fixes = calls[0][2]
+                rescued = [f for f in fixes if f and mol_from_smiles(f) is not None]
+                want = rule.correct(valid + rescued)
+                print(f"   ${var}={os.path.relpath(value, post_dir)}: "
+                      f"{type(corr.neural).__name__} on {corr.neural.device}; correct() of "
+                      f"{len(delivered)} delivered + {len(r4_holdout)} held-out sources "
+                      f"({len(invalid)} invalid) in "
+                      f"{wall:.2f} s: one translate_batch of {len(invalid)} on the card, "
+                      f"{len(rescued)} rescued, {len(got)} delivered after standardising "
+                      f"and deduplicating")
+                if got != want:
+                    raise AssertionError(f"${var}: correct() differs from the rule path on "
+                                         "the rescued set")
+                out[f"14c {var}"] = {"rescued": len(rescued), "seconds": wall}
+                del os.environ[var]
+        finally:
+            for var, value in saved.items():
+                os.environ.pop(var, None)
+                if value is not None:
+                    os.environ[var] = value
+
+    with phase("14d a reference checkpoint served, one forward traced"):
+        ref_ckpt_dir = os.path.join(work, "reference_ckpt")
+        dp_dir = os.path.join(work, "reference_ckpt_dp")
+        os.makedirs(ref_ckpt_dir)
+        os.makedirs(dp_dir)
+        argv = ["--reverse", "--model", "generator", "--input",
+                os.path.join(CKPT_DIR, "DrugGEN-G.ckpt"), "--output",
+                os.path.join(ref_ckpt_dir, "DrugGEN-G.ckpt")]
+        print(f"   python -m druggen_tpu_torch.import_torch_ckpt {' '.join(argv)}")
+        if import_torch_ckpt.main(argv) != 0:
+            raise AssertionError("import_torch_ckpt --reverse failed")
+        sd = torch.load(os.path.join(ref_ckpt_dir, "DrugGEN-G.ckpt"), weights_only=True)
+        torch.save({"module." + k: v for k, v in sd.items()},
+                   os.path.join(dp_dir, "DrugGEN-G.ckpt"))
+        inf_smi = os.path.join(work, "inf.smi")
+        with open(SMILES_FILE) as src, open(inf_smi, "w") as dst:
+            for _, line in zip(range(2 * SERVE_BATCH), src):
+                dst.write(line)
+        with open(VOCAB_JSON) as f:
+            vocab = Vocab.from_json(f.read())
+        labels = {}
+        for label, model_dir in (("msgpack", CKPT_DIR), ("reference .ckpt", ref_ckpt_dir),
+                                 ("reference .ckpt with module.", dp_dir)):
+            cfg = InferenceConfig(
+                submodel="DrugGEN", inference_model=model_dir, inf_smiles=inf_smi,
+                train_smiles=inf_smi, train_drug_smiles=DRUG_FILE,
+                mol_data_dir=os.path.join(work, "data"), compute_dtype="bfloat16",
+                fused_mlp=True, inf_batch_size=SERVE_BATCH, seed=SEED, device="cuda")
+            engine = InferenceEngine(cfg, vocab=vocab)
+            x, a = next(iter(BatchIterator(engine.data, SERVE_BATCH, seed=cfg.seed)))
+            labels[label] = [t.cpu() for t in engine.forward(a, x)]
+        want = labels["msgpack"]
+        for label, got in labels.items():
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"   {label}: a batch of {SERVE_BATCH} served, labels bit-equal to the "
+                  f"msgpack-loaded engine's: {same}")
+            if not same:
+                raise AssertionError(f"{label}: labels differ from the msgpack engine's")
+        trace_dir = os.path.join(work, "trace")
+        with profiling.trace(trace_dir) as prof:
+            engine.forward(a, x)
+            torch.cuda.synchronize()
+        files = os.listdir(trace_dir)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"   profiling.trace: {files} ({os.path.getsize(os.path.join(trace_dir, files[0])):,} "
+              f"bytes); device time of the forward {device_ms:.3f} ms", flush=True)
+        if len(files) != 1 or not files[0].endswith(".json"):
+            raise AssertionError(f"profiling.trace wrote {files}")
+        del engine
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3161,6 +3553,8 @@ def main() -> int:
         launches_select = checkpoint_selection(post.name, ref1, counted_all, name, smi_line)
     with phase("13 offline evaluation"):
         offline_evaluation(post.name, delivered_csv, ref1, name, smi_line)
+    with phase("14 neural correctors"):
+        neural_correctors(post.name, delivered_csv, ref1, name, smi_line)
     post.cleanup()
 
     record = {"kernels": [{

@@ -6,8 +6,9 @@ the whole-generator kernel K9, ``ops/fused_generator.py``, one wrapper call
 a forward, as in JAX :89-107), decode the labels to molecules on the
 host, keep the largest fragment with ``*``->``C``, loop until ``sample_num``
 valid molecules are collected or the batch cap is hit.  ``run()`` then
-corrects the set with the rule-based :class:`..infer.corrector.SmilesCorrector`
-(unless ``disable_correction``), tops it up with fresh samples until it
+corrects the set with :class:`..infer.corrector.SmilesCorrector` (unless
+``disable_correction``; the neural corrector the JAX variables configure
+runs on the engine's device), tops it up with fresh samples until it
 reaches ``sample_num``, computes the 14-key report and writes
 ``inference_drugs.csv`` and ``inference_results.csv``, as the JAX engine
 does.  The report's Tanimoto products (SNN, IntDiv) run on the engine's
@@ -243,7 +244,7 @@ class InferenceEngine:
         lap("sampling")
         gen_smi = kept
         if not cfg.disable_correction:
-            corrector = SmilesCorrector.default(out_dir)
+            corrector = SmilesCorrector.default(out_dir, device=self.device)
             gen_smi = corrector.correct(kept)
             # the correction dedupes, so the delivered set can shrink below
             # sample_num: top up with fresh samples until it reaches it

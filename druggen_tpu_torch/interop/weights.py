@@ -16,7 +16,8 @@ Layout: ``nn.Linear.weight`` is ``[out, in]`` and flax ``Dense.kernel`` is
 Torch keys: ``node_layers.0/.2``, ``edge_layers.0/.2``,
 ``TransformerEncoder.Encoder_Blocks.i.{ln1,ln3..ln6, attn.*, mlp.*, mlp2.*}``,
 ``readout_n``, ``readout_e`` (Generator), ``node_mlp.{0,2,4,6}``
-(Discriminator).
+(Discriminator), ``predictor.{0,2,4,6,8,10}`` (SimpleDisc, flax
+``fc1..fc6``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from druggen_tpu_torch.interop.msgpack_ckpt import unstack_block_params
 
 _LNS = (1, 3, 4, 5, 6)
 _HEAD = (0, 2, 4, 6)        # node_mlp indices of mlp_fc1..mlp_fc4
+_PREDICTOR = (0, 2, 4, 6, 8, 10)    # SimpleDisc's predictor indices of fc1..fc6
 _ATTN = ("q", "k", "v", "e", "out_e", "out_n")
 
 
@@ -100,6 +102,16 @@ def flax_discriminator_to_torch(variables: dict) -> dict:
     _emit_trunk(out, p["trunk"])
     for i, tidx in enumerate(_HEAD, start=1):
         _emit_linear(out, f"node_mlp.{tidx}", p[f"mlp_fc{i}"])
+    return out
+
+
+def flax_simple_disc_to_torch(variables: dict) -> dict:
+    """druggen_tpu SimpleDisc variables (``fc1..fc6``) -> the port's
+    state_dict (``predictor.{0,2,4,6,8,10}``)."""
+    p = _unwrap(variables)
+    out: dict = {}
+    for i, tidx in enumerate(_PREDICTOR, start=1):
+        _emit_linear(out, f"predictor.{tidx}", p[f"fc{i}"])
     return out
 
 
@@ -182,6 +194,13 @@ def torch_discriminator_to_flax(sd: dict) -> dict:
     for i, tidx in enumerate(_HEAD, start=1):
         params[f"mlp_fc{i}"] = _linear(sd, f"node_mlp.{tidx}")
     return {"params": params}
+
+
+def torch_simple_disc_to_flax(sd: dict) -> dict:
+    """The port's SimpleDisc state_dict -> druggen_tpu SimpleDisc
+    variables."""
+    return {"params": {f"fc{i}": _linear(sd, f"predictor.{tidx}")
+                       for i, tidx in enumerate(_PREDICTOR, start=1)}}
 
 
 # ---------------------------------------------------------------------------

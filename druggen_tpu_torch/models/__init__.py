@@ -11,8 +11,8 @@ from druggen_tpu_torch.models.layers import (
     init_torch_style_,
     numerics,
 )
-from druggen_tpu_torch.models.models import Discriminator, Generator
+from druggen_tpu_torch.models.models import Discriminator, Generator, SimpleDisc
 
 __all__ = ["MLP", "Dense", "EncoderBlock", "GraphMHA", "LayerNorm",
-           "TransformerEncoder", "Generator", "Discriminator",
+           "TransformerEncoder", "Generator", "Discriminator", "SimpleDisc",
            "get_activation", "init_torch_style_", "numerics"]

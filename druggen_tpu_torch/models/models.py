@@ -1,11 +1,13 @@
-"""Generator and Discriminator (port of ``druggen_tpu/models/models.py``).
+"""Generator, Discriminator and SimpleDisc (port of
+``druggen_tpu/models/models.py``).
 
 Same topology as the reference ``src/model/models.py:5-103``: node MLP
 (m_dim->64->dim, act after each Linear) + edge MLP (b_dim->64->dim), edge
 symmetrisation (e+eᵀ)/2, transformer stack, readouts dim->m_dim (nodes) and
 dim->b_dim (edges).  Submodules carry the reference torch names
 (``node_layers.0/.2``, ``edge_layers.0/.2``,
-``TransformerEncoder.Encoder_Blocks.i.*``, ``readout_n``, ``readout_e``; the critic's head ``node_mlp.{0,2,4,6}``),
+``TransformerEncoder.Encoder_Blocks.i.*``, ``readout_n``, ``readout_e``; the critic's head ``node_mlp.{0,2,4,6}``;
+SimpleDisc's ``predictor.{0,2,4,6,8,10}``),
 so a state_dict from :mod:`druggen_tpu_torch.interop.weights` loads as is.
 """
 
@@ -116,3 +118,29 @@ class Discriminator(_Trunk):
     def forward(self, z_e, z_n, need_last_edge: bool = False):
         node, _ = self.trunk(z_e, z_n, need_last_edge)
         return self.node_mlp(node.reshape(node.shape[0], -1))
+
+
+class SimpleDisc(nn.Module):
+    """Flat-feature MLP critic (reference simple_disc, models.py:212-269;
+    JAX ``models.py:185-207``).
+
+    ``forward(x [B, N*m_dim + N*N*b_dim])`` -> ``[B, 1]``: Linear layers of
+    widths 256, 128, 64, 32, 16, 1 with the activation between them, under
+    the reference's keys ``predictor.{0,2,4,6,8,10}``."""
+
+    def __init__(self, act: str, m_dim: int, vertexes: int, b_dim: int,
+                 dtype=None, generator: torch.Generator | None = None):
+        super().__init__()
+        fan_in = vertexes * m_dim + vertexes ** 2 * b_dim
+        layers = []
+        for w in (256, 128, 64, 32, 16):
+            layers += [Dense(fan_in, w, dtype), get_activation(act)]
+            fan_in = w
+        layers.append(Dense(fan_in, 1, dtype))
+        self.predictor = nn.Sequential(*layers)
+        if generator is None:
+            generator = torch.Generator().manual_seed(2)
+        init_torch_style_(self, generator)
+
+    def forward(self, x):
+        return self.predictor(x)

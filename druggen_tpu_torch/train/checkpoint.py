@@ -34,6 +34,7 @@ from druggen_tpu_torch.interop.msgpack_ckpt import (
     read_flax_checkpoint,
     stack_block_params,
 )
+from druggen_tpu_torch.interop.torch_ckpt import is_torch_file, load_torch_state_dict
 from druggen_tpu_torch.interop.weights import (
     flax_discriminator_to_torch,
     flax_generator_to_torch,
@@ -73,7 +74,11 @@ def load_params_auto(path: str) -> dict:
     in the unrolled or the stacked ``scan_layers`` layout, as the port's
     Generator state_dict (torch tensors).  The counterpart of JAX
     ``load_params_auto`` (``train/checkpoint.py:57-74``): the port's
-    Generator is always unrolled, so a stacked file is unstacked."""
+    Generator is always unrolled, so a stacked file is unstacked.  A
+    reference torch ``state_dict`` file (``torch.save``, with or without the
+    ``module.`` prefix) is read as such: its keys are the port's."""
+    if is_torch_file(path):
+        return load_torch_state_dict(path)
     return to_torch_tensors(flax_generator_to_torch(read_flax_checkpoint(path)))
 
 

@@ -1273,3 +1273,70 @@ def test_engine_weight_swap_under_use_pallas_serves_the_new_weights(tmp_path):
     for got, ref in zip(swapped, want):
         assert torch.equal(got, ref)
     assert any(not torch.equal(f, s) for f, s in zip(first, swapped))
+
+
+# ---------------------------------------------------------------- correctors
+# plain PyTorch on the card (no kernel of their own): card against CPU in
+# f32 with TF32 off, logits at rtol 2e-4 / atol 2e-5 (sums in another
+# order), greedy tokens equal
+
+
+def _corrector_inputs(vocab: int, rows: int = 6, length: int = 20, pad: int = 0):
+    rng = np.random.default_rng(0)
+    src = rng.integers(4, vocab, (rows, length))
+    src[:, length // 2 + 2:] = pad
+    return torch.as_tensor(src)
+
+
+@pytest.mark.cuda
+def test_native_corrector_on_card_matches_cpu():
+    _need_card()
+    from druggen_tpu_torch.infer import seq2seq as s2s
+
+    cpu = s2s.Seq2Seq(40, hid=64, heads=4, pf=128, n_layers=2, max_len=32).eval()
+    card = s2s.Seq2Seq(40, hid=64, heads=4, pf=128, n_layers=2, max_len=32)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    src = _corrector_inputs(40)
+    tgt = src.roll(1, 0)
+    with torch.no_grad():
+        want = cpu(src, tgt)
+        got = card(src.cuda(), tgt.cuda()).cpu()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert torch.equal(s2s.greedy_decode(card, src.cuda()).cpu(),
+                       s2s.greedy_decode(cpu, src))
+
+
+@pytest.mark.cuda
+def test_reference_corrector_on_card_matches_cpu():
+    _need_card()
+    from druggen_tpu_torch.infer import seq2seq_ref as ref
+    from druggen_tpu_torch.interop.corrector_ckpt import ReferenceCorrector
+
+    params = ref.init_params(0, 40, 40, hid=64, pf=128, n_layers=2, max_len=30)
+    itos = ["<unk>", "<pad>", "<sos>", "<eos>"] + [f"t{i}" for i in range(36)]
+    cpu = ReferenceCorrector(params, {}, itos, heads=4, max_len=30, device="cpu")
+    card = ReferenceCorrector(params, {}, itos, heads=4, max_len=30, device="cuda")
+    src = _corrector_inputs(40, pad=ref.PAD)
+    with torch.no_grad():
+        want = cpu.model(src, src.roll(1, 0))
+        got = card.model(src.cuda(), src.roll(1, 0).cuda()).cpu()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert torch.equal(ref.greedy_translate(card.model, src.cuda(), max_len=30).cpu(),
+                       ref.greedy_translate(cpu.model, src, max_len=30))
+
+
+@pytest.mark.cuda
+def test_smiles_corrector_attaches_on_card(tmp_path, monkeypatch):
+    _need_card()
+    from druggen_tpu_torch.infer.corrector import SmilesCorrector
+    from druggen_tpu_torch.infer.seq2seq import train_corrector
+
+    train_corrector(["CCO", "CCN", "c1ccccc1", "CC(=O)O"], steps=3, batch=4, hid=32,
+                    heads=4, pf=64, n_layers=1, max_len=24, log_every=0,
+                    device="cuda").save(str(tmp_path / "c"))
+    monkeypatch.delenv("DRUGGEN_REFERENCE_CORRECTOR", raising=False)
+    monkeypatch.setenv("DRUGGEN_CORRECTOR_CKPT", str(tmp_path / "c"))
+    corr = SmilesCorrector.default(device="cuda")
+    assert corr.neural.device.type == "cuda"
+    assert corr.correct(["CCO", "CC(("])[0] == "CCO"

@@ -24,7 +24,9 @@ from druggen_tpu.infer.engine import InferenceEngine as JaxInferenceEngine
 from druggen_tpu_torch import inference as port_cli
 from druggen_tpu_torch.chem.vocab import Vocab
 from druggen_tpu_torch.config import InferenceConfig, parse_inference_args
+from druggen_tpu_torch.infer.corrector import SmilesCorrector
 from druggen_tpu_torch.infer.engine import InferenceEngine, resolve_device
+from druggen_tpu_torch.infer.seq2seq import Seq2SeqCorrector, train_corrector
 
 torch.set_num_threads(1)
 
@@ -165,19 +167,70 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_options_raise(served, tmp_path):
-    """A configured neural corrector raises; the port does not fall back
-    to the rule path on its own."""
+    """A configured neural corrector that does not load raises, naming the
+    variable; the port does not fall back to the rule path on its own (the
+    JAX package prints a note and does, or ignores a path that does not
+    exist)."""
     _, port_engine = served
+    (tmp_path / "empty").mkdir()
     for var in CORRECTOR_VARS:
-        engine = copy.copy(port_engine)
-        engine.cfg = dataclasses.replace(port_engine.cfg, disable_correction=False,
-                                         output_dir=str(tmp_path))
-        with pytest.MonkeyPatch.context() as mp:
-            for other in CORRECTOR_VARS:
-                mp.delenv(other, raising=False)
-            mp.setenv(var, str(tmp_path / "corrector"))
-            with pytest.raises(NotImplementedError, match=var):
-                engine.run()
+        for value in (str(tmp_path / "corrector"), str(tmp_path / "empty")):
+            engine = copy.copy(port_engine)
+            engine.cfg = dataclasses.replace(port_engine.cfg, disable_correction=False,
+                                             output_dir=str(tmp_path))
+            with pytest.MonkeyPatch.context() as mp:
+                for other in CORRECTOR_VARS:
+                    mp.delenv(other, raising=False)
+                mp.setenv(var, value)
+                with pytest.raises(RuntimeError, match=var):
+                    engine.run()
+
+
+def test_run_with_a_trained_corrector_attached(served, jax_corrected, tmp_path):
+    """$DRUGGEN_CORRECTOR_CKPT set to a small corrector trained by the port:
+    run() attaches it on the engine's device.  The serving path hands the
+    corrector only SMILES that parse, as the JAX engine does, so it rewrites
+    none here and the report and files are the rule path's (the JAX
+    engine's); an invalid SMILES handed to the same corrector goes through
+    one translate_batch."""
+    want, want_files = jax_corrected
+    ckpt = tmp_path / "corrector"
+    train_corrector(["CCO", "CCN", "c1ccccc1", "CC(=O)O", "CCCC"], steps=2, batch=4,
+                    hid=16, heads=2, pf=32, n_layers=1, max_len=24, log_every=0,
+                    device="cpu").save(str(ckpt))
+    calls = []
+    translate = Seq2SeqCorrector.translate_batch
+
+    def spy(self, smiles_list):
+        calls.append((list(smiles_list), self.device))
+        return translate(self, smiles_list)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Seq2SeqCorrector, "translate_batch", spy)
+        mp.setattr(SmilesCorrector, "default", _recording(SmilesCorrector.default, calls))
+        mp.setenv("DRUGGEN_CORRECTOR_CKPT", str(ckpt))
+        engine = copy.copy(served[1])
+        engine.cfg = dataclasses.replace(engine.cfg, disable_correction=False,
+                                         sample_num=CORRECTED_SAMPLE_NUM,
+                                         output_dir=str(tmp_path / "out"))
+        got = engine.run()
+        attached = [c for c in calls if isinstance(c, SmilesCorrector)]
+        assert attached and all(isinstance(c.neural, Seq2SeqCorrector) for c in attached)
+        assert all(c.neural.device == engine.device for c in attached)
+        assert not [c for c in calls if isinstance(c, tuple)]      # nothing to rewrite
+        assert got == want
+        for name in OUTPUTS:
+            assert (tmp_path / "out" / "DrugGEN" / name).read_bytes() == want_files[name]
+        out = attached[0].correct(["CCO", "CC((", "OCC"])
+        assert calls[-1] == (["CC(("], engine.device) and out[0] == "CCO"
+
+
+def _recording(default, calls):
+    def wrapped(*args, **kwargs):
+        corrector = default(*args, **kwargs)
+        calls.append(corrector)
+        return corrector
+    return wrapped
 
 
 def test_f32_guard_turns_the_kernel_off(served):

@@ -64,7 +64,12 @@ def test_scan_sees_the_whole_package():
     assert "druggen_tpu_torch/train/__main__.py" in paths
     for module in ("native/__init__.py", "metrics/chemnet.py", "metrics/fcd.py",
                    "metrics/frag_scaf.py", "chem/scaffolds.py", "evaluate.py",
-                   "select_checkpoint.py"):
+                   "select_checkpoint.py", "infer/seq2seq.py", "infer/seq2seq_ref.py",
+                   "interop/corrector_ckpt.py", "interop/corrector_weights.py",
+                   "interop/torch_ckpt.py", "train_corrector.py",
+                   "mine_corrector_pairs.py", "import_torch_ckpt.py",
+                   "utils/profiling.py", "utils/diagnostics.py", "data/fragmenter.py",
+                   "entry.py"):
         assert f"druggen_tpu_torch/{module}" in paths
 
 
@@ -86,9 +91,43 @@ def test_utils_copies_are_verbatim(name):
 @pytest.mark.parametrize("package, name", [
     ("data", "corpus"), ("metrics", "parallel_map"),
     ("metrics", "descriptor_metrics"), ("metrics", "__init__"),
-    ("metrics", "frag_scaf"), ("metrics", "fcd")])
+    ("metrics", "frag_scaf"), ("metrics", "fcd"), ("data", "fragmenter")])
 def test_data_and_metrics_copies_are_verbatim(package, name):
     _assert_verbatim_copy(package, name)
+
+
+@pytest.mark.parametrize("port, orig, name", [
+    ("infer/seq2seq.py", "druggen_tpu/infer/seq2seq.py", name) for name in (
+        "tokenize", "Tokenizer", "corruption_pairs", "_repair_to_valid",
+        "generator_failure_pairs")] + [
+    ("infer/seq2seq_ref.py", "druggen_tpu/infer/seq2seq_ref.py", name)
+    for name in ("init_params", "decode_tokens")] + [
+    ("interop/corrector_ckpt.py", "druggen_tpu/interop/corrector_ckpt.py", name)
+    for name in ("_default_unk_index", "_ShimVocab", "install_torchtext_shim",
+                 "load_torchtext_vocab", "_lin", "_lnp", "_attn",
+                 "convert_corrector_state_dict")] + [
+    ("train_corrector.py", "scripts/train_corrector.py", "evaluate_corrector"),
+    ("utils/profiling.py", "druggen_tpu/utils/profiling.py", "StepTimer"),
+    ("utils/diagnostics.py", "druggen_tpu/utils/diagnostics.py", "dense_to_sparse_with_attr"),
+    ("utils/diagnostics.py", "druggen_tpu/utils/diagnostics.py", "tanimoto_sim_1v2"),
+    ("interop/torch_ckpt.py", "druggen_tpu/interop/torch_ckpt.py",
+     "strip_data_parallel_prefix")])
+def test_copied_functions_are_verbatim(port, orig, name):
+    """The port's copies of the corrector helpers and tools equal the
+    originals but for the import paths."""
+    got = _definition(os.path.join(PORT, port), name).replace("druggen_tpu_torch.",
+                                                              "druggen_tpu.")
+    assert got == _definition(os.path.join(REPO, orig), name)
+
+
+def _definition(path, name):
+    """The source of the top-level function or class ``name`` of ``path``."""
+    src = open(path).read()
+    for node in ast.parse(src).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.name == name:
+            first = node.decorator_list[0].lineno if node.decorator_list else node.lineno
+            return "\n".join(src.splitlines()[first - 1:node.end_lineno])
+    raise AssertionError(f"{name} is not defined in {path}")
 
 
 def test_native_source_is_byte_equal():
