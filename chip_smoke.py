@@ -157,6 +157,22 @@ exits non-zero without printing a result line:
                ``.ckpt`` plain and with ``module.``: a batch of 512, labels
                bit-equal to the msgpack engine's; one forward under
                ``utils/profiling.trace`` writes a trace.
+15. parallel training — two ranks on cuda:0 under a gloo group the phase
+               starts (each child joined within ``PAR_JOIN_S``), the port's
+               ``Trainer`` on the caller's group at the r2_scale config (batch
+               512 global, bf16, seed 42), 4 steps on the first 2,048 corpus
+               molecules: 15a ``--mesh_data 2 --fused_mlp --fused_critic``,
+               15b ``--mesh_node 2 --fused_mlp`` (N padded 45 -> 46), 15c
+               ``--mesh_model 2 --fused_mlp``; every rank's losses and rank
+               0's parameters after each step (and step 1's gradients, but
+               15c's) held to a single-rank run of the same steps from the
+               same state on the same data (``TOL_STEP``); K1/K2 launches
+               per rank (the wrappers; the profiler on one more step); K1/K2
+               at 15b's block shape against their plain versions; rank 0's
+               export served back; per rank the step's CUDA-event ms, peak
+               memory, backend and collective payload a step; then 15d
+               ``entry.dryrun_multichip(2)`` on the two ranks.  Two ranks
+               sharing one card over host transport measure no scaling.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2672,6 +2688,310 @@ def neural_correctors(post_dir: str, delivered_csv: str, ref1: str, name: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: parallel training, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# the r2_scale config at full width (N 45, dim 128, depth 1, 8 heads,
+# mlp_ratio 3, bf16, seed 42, batch 512) on the first PAR_MOLECULES corpus
+# molecules: one epoch of PAR_STEPS steps; each child joined within PAR_JOIN_S
+PAR_MOLECULES = 2048
+PAR_STEPS = PAR_MOLECULES // TRAIN_BATCH
+PAR_WORLD = 2
+PAR_JOIN_S = 600
+PAR_RUNS = (("15a", "--mesh_data 2 --fused_mlp --fused_critic",
+             {"mesh_data": 2, "fused_mlp": True, "fused_critic": True}),
+            ("15b", "--mesh_node 2 --fused_mlp", {"mesh_node": 2, "fused_mlp": True}),
+            ("15c", "--mesh_model 2 --fused_mlp", {"mesh_model": 2, "fused_mlp": True}))
+# K1's and K2's device kernels, for the profiler's count (K2: its rows launch)
+PAR_KERNELS = {"K1": "tail_fwd_", "K2": "tail_bwd_rows"}
+
+
+def parallel_config(tmp: str, key: str, who: str, **extra):
+    """Phase 15's TrainConfig: the published run's, no cadence, one epoch of
+    PAR_MOLECULES molecules; ``who`` names the output directories."""
+    from druggen_tpu_torch.config import TrainConfig
+
+    sub = os.path.join(tmp, key, who)
+    return TrainConfig(
+        raw_file=os.path.join(tmp, f"chembl_like_{PAR_MOLECULES}.smi"),
+        drug_raw_file=DRUG_FILE, submodel="DrugGEN", batch_size=TRAIN_BATCH, epoch=1,
+        compute_dtype="bfloat16", log_sample_step=10 ** 6, set_seed=True, seed=42,
+        exp_name="chip_smoke_parallel", mol_data_dir=tmp, drug_data_dir=tmp,
+        log_dir=os.path.join(sub, "logs"), sample_dir=os.path.join(sub, "samples"),
+        model_save_dir=os.path.join(sub, "models"), device="cuda", **extra)
+
+
+def record_steps(trainer) -> dict:
+    """Wrap ``trainer``'s step and optimizers: per step its CUDA-event ms and
+    its global losses (summed over the mesh), and the whole gradients (after
+    their sum over the ranks; D's then G's) and parameters (G's then D's),
+    gathered where split (collective)."""
+    from druggen_tpu_torch.parallel import mesh as pmesh
+
+    rec = {"ms": [], "losses": [], "grads": [], "params": []}
+    mesh = trainer.mesh
+
+    def whole(model, sd=None):
+        return torch.cat([t.reshape(-1).float() for t in trainer._whole(model, sd).values()])
+
+    for opt, model in ((trainer.d_opt, trainer.D), (trainer.g_opt, trainer.G)):
+        def hook(flat, inner=opt.grad_hook, opt=opt, model=model):
+            flat = inner(flat) if inner is not None else flat
+            rec["grads"].append(whole(model, opt._unflat(flat)).cpu())
+            return flat
+        opt.grad_hook = hook
+    step = trainer.step_fn
+
+    def wrapped(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        end.synchronize()
+        rec["ms"].append(start.elapsed_time(end))
+        losses = torch.stack([out["d_loss"].float(), out["g_loss"].float()])
+        if trainer.parallel:
+            losses = pmesh.all_reduce(losses, mesh.whole) / mesh.size
+        rec["losses"].append(losses.tolist())
+        rec["params"].append(torch.cat([whole(trainer.G), whole(trainer.D)]).cpu())
+        return out
+    trainer.step_fn = wrapped
+    rec["step"] = step
+    rec["start"] = torch.cat([whole(trainer.G), whole(trainer.D)]).cpu()
+    return rec
+
+
+def parallel_rank(tmp: str) -> None:
+    """One rank of phase 15 (spawned; both ranks on cuda:0 under a gloo
+    group): the trainer at each of PAR_RUNS, then ``dryrun_multichip``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    from druggen_tpu_torch.chem.vocab import Vocab
+    from druggen_tpu_torch.data.dataset import BatchIterator
+    from druggen_tpu_torch.entry import dryrun_multichip
+    from druggen_tpu_torch.ops.fused_mlp import fused_ln_mlp_ln, fused_ln_mlp_ln_bwd
+    from druggen_tpu_torch.parallel import edge_partition as ep
+    from druggen_tpu_torch.parallel import mesh as pmesh
+    from druggen_tpu_torch.train.trainer import Trainer
+
+    with open(TRAIN_VOCAB_JSON) as f:
+        vocab = Vocab.from_json(f.read())
+    out = {"backend": dist.get_backend()}
+    for key, _, extra in PAR_RUNS:
+        t0 = time.perf_counter()
+        tr = Trainer(parallel_config(tmp, key, f"rank{rank}", **extra), vocab=vocab)
+        setup = time.perf_counter() - t0
+        rec = record_steps(tr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in (fused_ln_mlp_ln, fused_ln_mlp_ln_bwd):
+            fn.launches = 0
+        moved = dict(pmesh.MOVED)
+        t0 = time.perf_counter()
+        tr.train()
+        wall = time.perf_counter() - t0
+        launches = {"fused_ln_mlp_ln_fwd": fused_ln_mlp_ln.launches,
+                    "fused_ln_mlp_ln_bwd": fused_ln_mlp_ln_bwd.launches}
+        calls = pmesh.MOVED["calls"] - moved["calls"]
+        nbytes = pmesh.MOVED["bytes"] - moved["bytes"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # one more step, under the profiler on rank 0: K1/K2 device launches
+        x, a = next(BatchIterator(tr.data, TRAIN_BATCH, seed=42).epoch_batches(0))
+        batch = (ep.shard_train_inputs(tr.mesh, x, a, x, a) if tr.node_k > 1
+                 else pmesh.shard_batch(tr.mesh, x, a, x, a))
+        batch = [t.copy() for t in batch]
+        # (one step on both ranks: a second profile on rank 0 alone would
+        # leave rank 1 out of its collectives)
+        counts = None
+        if rank == 0:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                rec["step"](*batch)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            counts = {k: sum(e.count for e in events if pat in e.key)
+                      for k, pat in PAR_KERNELS.items()}
+            counts["device_time"] = bool(events)
+        else:
+            rec["step"](*batch)
+            torch.cuda.synchronize()
+        out[key] = {"setup_s": setup, "wall_s": wall, "launches": launches,
+                    "ms": rec["ms"], "losses": rec["losses"], "peak_gib": peak,
+                    "collective_calls": calls, "collective_bytes": nbytes,
+                    "profiled": counts, "vertexes": tr.vertexes, "mesh": tr.mesh.shape,
+                    "model_dir": tr.model_dir,
+                    "written": sorted(os.listdir(tr.model_dir))
+                    if os.path.isdir(tr.model_dir) else None}
+        if rank == 0:
+            out[key]["grads"] = rec["grads"][:2 * PAR_STEPS]
+            out[key]["params"] = rec["params"][:PAR_STEPS]
+        del tr
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_multichip(world, device="cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def parallel_training(name: str, smi_line: str) -> dict:
+    """Phase 15: the parallel modes on the one card.  Two ranks share cuda:0
+    under a gloo group this phase starts (gloo is the backend that takes two
+    ranks on one device; it carries CUDA tensors through host memory, by
+    broadcast and all_reduce).  Each of PAR_RUNS trains PAR_STEPS steps from
+    the published config's start; every rank's losses, rank 0's gradients and
+    parameters after each step are held to a single-rank run of the same
+    steps from the same state on the same (padded) data (TOL_STEP); K1/K2
+    launches counted per rank (wrappers; the profiler on one more step); K1/K2
+    at 15b's block shape against their plain versions; rank 0's export served
+    back.  Then ``dryrun_multichip(2)`` on the two ranks."""
+    from druggen_tpu_torch.chem.vocab import Vocab
+    from druggen_tpu_torch.config import InferenceConfig
+    from druggen_tpu_torch.data.dataset import load_dataset, pad_vertices
+    from druggen_tpu_torch.infer.engine import InferenceEngine
+    from druggen_tpu_torch.parallel.mesh import spawn
+    from druggen_tpu_torch.ops.fused_mlp import (
+        fused_ln_mlp_ln,
+        fused_ln_mlp_ln_bwd,
+        fused_ln_mlp_ln_bwd_reference,
+        fused_ln_mlp_ln_reference,
+        witness_kink_flips,
+    )
+    from druggen_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_")
+    raw = os.path.join(tmp.name, f"chembl_like_{PAR_MOLECULES}.smi")
+    with open(SMILES_FILE) as src, open(raw, "w") as dst:
+        for _, line in zip(range(PAR_MOLECULES), src):
+            dst.write(line)
+    with open(TRAIN_VOCAB_JSON) as f:
+        vocab = Vocab.from_json(f.read())
+    print(f"   {PAR_WORLD} ranks on cuda:0 under gloo; {PAR_STEPS} steps of batch "
+          f"{TRAIN_BATCH} (bf16, dim {DIM}, N {N_ATOMS}, seed 42) on the first "
+          f"{PAR_MOLECULES} corpus molecules a run.  Two ranks sharing one card over host "
+          f"transport measure no scaling: the times below are not a scaling result.",
+          flush=True)
+    t0 = time.perf_counter()
+    spawn(parallel_rank, PAR_WORLD, tmp.name, timeout=PAR_JOIN_S)
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_WORLD)]
+    print(f"   the ranks ran in {time.perf_counter() - t0:.2f} s (spawn included); "
+          f"backend {ranks[0]['backend']}; dryrun_multichip({PAR_WORLD}) on the card "
+          f"{ranks[0]['dryrun_s']:.2f} s", flush=True)
+
+    tol = TOL_STEP[torch.bfloat16]
+    results = {}
+    for key, label, extra in PAR_RUNS:
+        runs = [r[key] for r in ranks]
+        # the single-rank run: the same config without the mesh, the same
+        # (padded) data
+        cfg = parallel_config(tmp.name, key, "single", **{
+            k: v for k, v in extra.items() if not k.startswith("mesh_")})
+        data = drug = None
+        if runs[0]["vertexes"] != N_ATOMS:
+            data, drug = (pad_vertices(load_dataset(path, vocab, N_ATOMS, tmp.name),
+                                       runs[0]["vertexes"])
+                          for path in (cfg.raw_file, cfg.drug_raw_file))
+        ref_tr = Trainer(cfg, vocab=vocab, data=data, drug_data=drug)
+        ref = record_steps(ref_tr)
+        ref_tr.train()
+        steps = len(ref["losses"])
+        loss_err = max(abs(g - w) / max(1.0, abs(w))
+                       for run in runs for got, want in zip(run["losses"], ref["losses"])
+                       for g, w in zip(got, want))
+        grad_err = [rel_err(g, w) for g, w in zip(runs[0]["grads"], ref["grads"])]
+        par, single, start = runs[0]["params"], ref["params"], ref["start"]
+        param_err = [rel_err(p, q) for p, q in zip(par, single)]
+        update_err = [rel_err(p - start, q - start) for p, q in zip(par, single)]
+        # K1 and K2: G's edge tail (depth 1) a step; the critic's one block
+        # skips its edge tail, and 15b/15c run the critic plain
+        expect = {"fused_ln_mlp_ln_fwd": steps, "fused_ln_mlp_ln_bwd": steps}
+        print(f"   {key} {label}: mesh {runs[0]['mesh']}, N {runs[0]['vertexes']}; "
+              f"set-up {runs[0]['setup_s']:.2f} s, {steps} steps in {runs[0]['wall_s']:.2f} s "
+              f"(rank 0)", flush=True)
+        for r, run in enumerate(runs):
+            ms = statistics.median(run["ms"][1:])
+            print(f"   {key} rank {r} on {name} ({smi_line}): step {ms:.2f} ms (CUDA "
+                  f"events, median of steps 2-{steps}; by step "
+                  f"{[round(m, 2) for m in run['ms']]}); peak memory {run['peak_gib']:.2f} "
+                  f"GiB; backend {ranks[r]['backend']}; collectives a step "
+                  f"{run['collective_calls'] / steps:.1f} calls, "
+                  f"{run['collective_bytes'] / steps / 2 ** 20:.1f} MiB payload; K1/K2 "
+                  f"launches {run['launches']} (expected {expect}); losses "
+                  f"{[[round(v, 4) for v in pair] for pair in run['losses']]}", flush=True)
+            if run["launches"] != expect:
+                raise AssertionError(f"{key} rank {r}: K1/K2 launches {run['launches']}, "
+                                     f"expected {expect}")
+            if len(run["losses"]) != steps or not all(
+                    math.isfinite(v) for pair in run["losses"] for v in pair):
+                raise AssertionError(f"{key} rank {r}: losses {run['losses']}")
+        prof = runs[0]["profiled"]
+        print(f"   {key} one more step under the profiler on rank 0: device launches "
+              f"{prof} (expected K1 1, K2 1)", flush=True)
+        if prof and prof.get("device_time") and (prof["K1"], prof["K2"]) != (1, 1):
+            raise AssertionError(f"{key}: the profiler counted {prof}")
+        print(f"   {key} against the single-rank run ({ref_tr.mesh.shape}, losses "
+              f"{[[round(v, 4) for v in pair] for pair in ref['losses']]}): losses "
+              f"(every rank) max relative error {loss_err:.3e}; rank 0's gradients (D, G "
+              f"by step) {[f'{e:.2e}' for e in grad_err]}; parameters "
+              f"{[f'{e:.2e}' for e in param_err]}; their change from the start "
+              f"{[f'{e:.2e}' for e in update_err]} [TOL_STEP {tol}: the losses, the "
+              f"parameters and, {'not ' if key == '15c' else ''}held, step 1's "
+              f"gradients; from step 2 the states differ: AdamW's first updates are "
+              f"±lr, and a near-zero gradient of the other sign in bf16 flips one; "
+              f"15c's row-parallel layers round each rank's partial product to bf16 "
+              f"before the sum, where one card rounds the whole sum once]", flush=True)
+        held = grad_err[:2] if key != "15c" else [0.0]
+        if (len(runs[0]["grads"]) != 2 * steps or loss_err > tol or max(held) > tol
+                or max(param_err) > tol):
+            raise AssertionError(f"{key}: the parallel run is away from the single-rank "
+                                 f"one: losses {loss_err}, gradients {grad_err}, "
+                                 f"parameters {param_err}")
+        written = runs[0]["written"]
+        if runs[1]["written"] is not None or "DrugGEN-G.ckpt" not in (written or []):
+            raise AssertionError(f"{key}: rank 0 wrote {written}, rank 1 "
+                                 f"{runs[1]['written']}")
+        inf = InferenceConfig(
+            submodel="DrugGEN", inference_model=runs[0]["model_dir"],
+            sample_num=TRAIN_BATCH, disable_correction=True, inf_smiles=raw,
+            train_smiles=raw, train_drug_smiles=DRUG_FILE, inf_batch_size=TRAIN_BATCH,
+            inf_max_batches=1, mol_data_dir=tmp.name,
+            output_dir=os.path.join(tmp.name, key, "inf"), compute_dtype="bfloat16",
+            fused_mlp=True, device="cuda")
+        engine = InferenceEngine(inf, vocab=vocab)
+        kept, decoded, _, _ = engine.sample(max_batches=1)
+        print(f"   {key} rank 0 wrote {written}; its DrugGEN-G.ckpt served: "
+              f"{len(decoded)} graphs, {len(kept)} valid", flush=True)
+        if len(decoded) != TRAIN_BATCH:
+            raise AssertionError(f"{key}: rank 0's export did not serve")
+        del engine, ref_tr
+        results[key] = {"launches": runs[0]["launches"],
+                        "launches_by_rank": [run["launches"] for run in runs],
+                        "step_ms": [statistics.median(run["ms"][1:]) for run in runs],
+                        "loss_err": loss_err, "grad_err": grad_err,
+                        "param_err": max(param_err)}
+
+    # K1/K2 at 15b's block shape: the rank's [B/dp, N/np, N, dim] edge rows
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tail_params(gen, "cuda")
+    n_pad = -(-N_ATOMS // 2) * 2
+    rows = TRAIN_BATCH * (n_pad // 2) * n_pad
+    print(f"   K1/K2 at 15b's block ({TRAIN_BATCH} x {n_pad // 2} x {n_pad} = {rows:,} rows):",
+          flush=True)
+    results["block_k1"] = check_kernel(fused_ln_mlp_ln, fused_ln_mlp_ln_reference, params,
+                                       rows, torch.bfloat16, gen)
+    results["block_k2"] = check_bwd_kernel(fused_ln_mlp_ln_bwd,
+                                           fused_ln_mlp_ln_bwd_reference,
+                                           witness_kink_flips, params, rows,
+                                           torch.bfloat16, gen)
+    tmp.cleanup()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3556,6 +3876,8 @@ def main() -> int:
     with phase("14 neural correctors"):
         neural_correctors(post.name, delivered_csv, ref1, name, smi_line)
     post.cleanup()
+    with phase("15 parallel training, two ranks on the card"):
+        parallel = parallel_training(name, smi_line)
 
     record = {"kernels": [{
         "name": "fused_ln_mlp_ln_fwd",
@@ -3575,7 +3897,10 @@ def main() -> int:
                              "training_options": {
                                  k: v["launches"]["fused_ln_mlp_ln_fwd"]
                                  for k, v in train["options"].items()},
-                             "checkpoint_selection": launches_select["fused_ln_mlp_ln_fwd"]},
+                             "checkpoint_selection": launches_select["fused_ln_mlp_ln_fwd"],
+                             "training_parallel_rank0": {
+                                 k: parallel[k]["launches"]["fused_ln_mlp_ln_fwd"]
+                                 for k in ("15a", "15b", "15c")}},
         "max_abs_err": k1["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3603,7 +3928,10 @@ def main() -> int:
                                  train["launches_block_fwdrev"]["fused_ln_mlp_ln_bwd"],
                              "training_options": {
                                  k: v["launches"]["fused_ln_mlp_ln_bwd"]
-                                 for k, v in train["options"].items()}},
+                                 for k, v in train["options"].items()},
+                             "training_parallel_rank0": {
+                                 k: parallel[k]["launches"]["fused_ln_mlp_ln_bwd"]
+                                 for k in ("15a", "15b", "15c")}},
         "max_abs_err": k2["max_abs_err"],
         "ms": kb_ms,
         "plain_ms": pb_ms,

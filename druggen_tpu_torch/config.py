@@ -4,9 +4,11 @@ Copied from ``druggen_tpu/config.py`` (``TrainConfig``, ``InferenceConfig``,
 ``parse_train_args``, ``parse_inference_args`` and their helpers) with one
 flag added to each: ``--device`` (default ``cuda``).  ``platform`` is kept so
 that the JAX CLI's command lines parse unchanged; the port ignores it and
-runs on ``device``.  Knobs of the JAX package that the port does not run
-(the parallel modes: ``mesh_*``, ``distributed``) parse and raise
-``NotImplementedError`` in the trainer.
+runs on ``device``.  The parallel modes (``mesh_*``, ``distributed``) run
+on ``torch.distributed``, one device a rank (:mod:`.parallel`): a 'device'
+of the comments below is a rank there, ``distributed`` starts the process
+group from ``coordinator_address``/``num_processes``/``process_id`` (or
+``torchrun``'s environment).
 ``InferenceConfig.use_pallas`` serves through the whole-generator kernel
 (K9).  ``TrainConfig.use_pallas`` runs the Generator's attention through
 the fused edge-attention kernels, ``TrainConfig.fused_block`` every encoder

@@ -1,8 +1,8 @@
 """Dense fixed-shape dataset pipeline.
 
-Copied from ``druggen_tpu/data/dataset.py`` without ``pad_vertices``;
-imports point at this package, and the native branch raises where the JAX
-one falls back to Python.
+Copied from ``druggen_tpu/data/dataset.py``; imports point at this
+package, and the native branch raises where the JAX one falls back to
+Python.
 
 The reference stores molecules as sparse PyG ``Data`` objects collated into a
 ``.pt`` (``src/data/dataset.py:280-317``) and re-densifies every batch on the
@@ -104,6 +104,30 @@ def featurize_smiles(smiles_list: list[str], vocab: Vocab, max_atom: int,
     return GraphData(x=np.stack(xs), a=np.stack(as_), smiles=kept,
                      vocab=vocab, max_atom=max_atom,
                      f=np.stack(fs) if features else None)
+
+
+# copied from druggen_tpu/data/dataset.py:109-130 pad_vertices
+def pad_vertices(data: GraphData, to: int) -> GraphData:
+    """Zero-pad the vertex axes of a corpus to ``to`` atoms.
+
+    Label 0 is the PAD atom class and BondType.ZERO (reference
+    ``src/data/utils.py:97-109`` vocab construction), so padding labels
+    with zeros means exactly "no atom / no bond" — the same semantics as
+    building the dataset with a larger ``max_atom``.  Used by the
+    edge-partitioned trainer to make vertexes divisible by the 'node'
+    mesh axis (e.g. 45 -> 48)."""
+    n = data.x.shape[1]
+    if to < n:
+        raise ValueError(f"cannot pad {n} vertices down to {to}")
+    if to == n:
+        return data
+    pad = to - n
+    x = np.pad(data.x, ((0, 0), (0, pad)))
+    a = np.pad(data.a, ((0, 0), (0, pad), (0, pad)))
+    f = None if data.f is None else np.pad(data.f,
+                                           ((0, 0), (0, pad), (0, 0)))
+    return GraphData(x=x, a=a, smiles=data.smiles, vocab=data.vocab,
+                     max_atom=data.max_atom, f=f)
 
 
 def load_dataset(raw_file: str, vocab: Vocab, max_atom: int,

@@ -7,6 +7,8 @@ from druggen_tpu_torch.models.layers import (
     GraphMHA,
     LayerNorm,
     TransformerEncoder,
+    distributed_edge_transpose,
+    gather_node_rows,
     get_activation,
     init_torch_style_,
     numerics,
@@ -15,4 +17,5 @@ from druggen_tpu_torch.models.models import Discriminator, Generator, SimpleDisc
 
 __all__ = ["MLP", "Dense", "EncoderBlock", "GraphMHA", "LayerNorm",
            "TransformerEncoder", "Generator", "Discriminator", "SimpleDisc",
-           "get_activation", "init_torch_style_", "numerics"]
+           "distributed_edge_transpose", "gather_node_rows", "get_activation",
+           "init_torch_style_", "numerics"]

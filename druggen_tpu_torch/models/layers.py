@@ -17,10 +17,41 @@ parameters and returns ``dtype``, and the attention chain runs in the stream
 dtype.  Parameters are stored f32 and named in the reference torch layout
 (``druggen_tpu/interop/torch_ckpt.py``).
 
-The compute dtype, ``fused_mlp`` (False, True or ``"block"``), ``use_pallas``
-and ``f32_stats`` are plain attributes of the modules, so one set of ``Parameter`` objects runs
-under several numerics (:func:`numerics`), as the JAX step's ``clone(...)``s
-do.
+The compute dtype, ``fused_mlp`` (False, True or ``"block"``), ``use_pallas``,
+``f32_stats`` and ``node_axis`` are plain attributes of the modules, so one set of ``Parameter``
+objects runs under several numerics (:func:`numerics`), as the JAX step's
+``clone(...)``s do.
+
+Collectives with autograd (the parallel modes, :mod:`druggen_tpu_torch.parallel`).
+One gradient rule, JAX's under ``shard_map``: a tensor is either
+*replicated* over a mesh axis (every rank holds the same value, and its
+cotangent is the same full cotangent on every rank) or *varying* (every rank
+holds its own block, and its cotangent is that block's).  Every rank
+computes the whole global loss and seeds it with 1.  A collective moves a
+tensor between the two, and each comes with its conjugate, which is its
+backward:
+
+- :func:`gather_invariant` (varying blocks -> the replicated whole;
+  :func:`gather_node_rows` along the node rows) has the backward
+  :func:`take_block` (this rank's block of the replicated cotangent, no
+  sum), and the other way round: JAX's invariant gather;
+- :func:`psum` (varying partial sums -> the replicated sum) has the backward
+  :func:`pvary` (identity forward: a replicated value that meets varying
+  ones; its backward sums the cotangents), and the other way round;
+- :func:`distributed_edge_transpose` (varying -> varying) is its own
+  backward: the transpose is a permutation and its own inverse.
+
+Every backward is built from these same functions, so they differentiate
+twice (the gradient penalty's double backward runs through them).  A plain
+gather whose backward summed the cotangents would inflate every gradient of
+a replicated value k-fold.  A parameter used on varying values gets a
+partial gradient on each rank, summed over the axis; one used only on
+replicated values (the critic's head after the node gather) gets its full
+gradient on every rank and is counted once (:mod:`..parallel.edge_partition`).
+A :class:`Dense` split over a 'model' axis (:mod:`..parallel.tensor_parallel`)
+is column-parallel (``pvary`` of its input, its output features split) or
+row-parallel (its input features split, ``psum`` of its output, then the
+bias): Megatron's conjugate pair under the same rule.
 """
 
 from __future__ import annotations
@@ -35,25 +66,152 @@ from torch import nn
 from druggen_tpu_torch.ops.fused_attention import edge_modulated_attention_proj
 from druggen_tpu_torch.ops.fused_block import fused_block_edge_stream
 from druggen_tpu_torch.ops.fused_mlp import FusedLnMlpLn
+from druggen_tpu_torch.parallel import mesh as _mesh
+
+
+class _GatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TakeBlock.apply(g, ctx.axis, ctx.dim), None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherInvariant.apply(g, ctx.axis, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.clone() if axis.size == 1 else _mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Pvary.apply(g, ctx.axis), None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Psum.apply(g, ctx.axis), None
+
+
+class _EdgeTranspose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, axis):
+        ctx.axis = axis
+        return _mesh.edge_transpose(e, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _EdgeTranspose.apply(g, ctx.axis), None
+
+
+def gather_invariant(x, axis, dim: int):
+    """Every rank's block of ``x`` along ``dim``, concatenated: replicated,
+    with :func:`take_block` as its backward (JAX ``all_gather_invariant``)."""
+    return _GatherInvariant.apply(x, axis, dim)
+
+
+def take_block(x, axis, dim: int):
+    """This rank's block of a replicated ``x`` along ``dim`` (varying), with
+    :func:`gather_invariant` as its backward."""
+    return _TakeBlock.apply(x, axis, dim)
+
+
+def gather_node_rows(x, axis, dim: int = 1):
+    """All node rows of ``x``, sharded over ``axis`` along ``dim`` (JAX
+    ``layers.py:97-107``): :func:`gather_invariant`."""
+    return gather_invariant(x, axis, dim)
+
+
+def psum(x, axis):
+    """The sum of ``x`` over ``axis`` (replicated), with :func:`pvary` as its
+    backward (the penalty's and the losses' ``jax.lax.psum``)."""
+    return _Psum.apply(x, axis)
+
+
+def pvary(x, axis):
+    """A replicated ``x`` used with varying values: identity forward; its
+    backward sums the cotangents over ``axis`` (:func:`psum`)."""
+    return _Pvary.apply(x, axis)
+
+
+def distributed_edge_transpose(e, axis):
+    """Transpose axes (1, 2) of a global ``[B, N, N, D]`` edge tensor whose
+    first vertex axis is sharded over ``axis`` (JAX ``layers.py:110-123``):
+    one all_to_all and a local swap; its own backward."""
+    return _EdgeTranspose.apply(e, axis)
 
 
 class Dense(nn.Module):
     """``nn.Linear`` with a compute dtype (flax ``nn.Dense(dtype=...)``).
 
     Parameters are created uninitialised; :func:`init_torch_style_` fills
-    them from an explicit ``torch.Generator``."""
+    them from an explicit ``torch.Generator``.
+
+    ``tp_kind`` ("column" or "row", with ``tp_axis``): the layer is split
+    over a 'model' axis and holds its shard (:mod:`..parallel.tensor_parallel`):
+    column-parallel keeps its rows of ``weight`` and ``bias`` (output
+    features) and takes its input through :func:`pvary`; row-parallel keeps
+    its columns of ``weight`` (input features), sums the partial outputs
+    with :func:`psum` and adds the whole bias.  :meth:`full` gives the whole
+    parameters (gathered, :func:`gather_invariant`) for a kernel that takes
+    them whole."""
 
     def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         self.dtype = dtype
+        self.tp_kind = None
+        self.tp_axis = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if self.tp_kind == "column":
+            x = pvary(x, self.tp_axis)
+        elif self.tp_kind == "row":
+            y = psum(F.linear(x.to(dt), self.weight.to(dt)), self.tp_axis)
+            return y + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+    def full(self) -> tuple:
+        """``(weight, bias)`` whole, on every rank of a split layer."""
+        if self.tp_kind == "column":
+            return (gather_invariant(self.weight, self.tp_axis, 0),
+                    gather_invariant(self.bias, self.tp_axis, 0))
+        if self.tp_kind == "row":
+            return gather_invariant(self.weight, self.tp_axis, 1), self.bias
+        return self.weight, self.bias
+
+    def forward_full(self, x):
+        """The layer on the whole parameters: replicated output."""
+        if self.tp_kind is None:
+            return self(x)
+        w, b = self.full()
+        dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        return F.linear(x.to(dt), w.to(dt), b.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -152,7 +310,16 @@ class GraphMHA(nn.Module):
     and the f32 ``e`` / ``out_e`` parameters go with them to
     :func:`..ops.fused_block.fused_block_edge_stream` (K7 forward, K8
     backward where its rule sends the shape; first-order only), then
-    ``out_n``; the returned edge stream is the block's new one."""
+    ``out_n``; the returned edge stream is the block's new one.
+
+    ``node_axis`` (an :class:`..parallel.mesh.Axis`): the edge-partitioned
+    mode (JAX ``layers.py:141-160, 185-187``): the node stream is this
+    rank's query rows ``[B, n, D]`` and the edge stream its row block
+    ``[B, n, N, D]``; k and v are projected on the local rows and gathered
+    (:func:`gather_node_rows`, then :func:`pvary`: the local queries use
+    them).  Not with ``use_pallas`` (as in JAX).  Under a split 'model'
+    axis the plain path runs on this rank's channels (the attention is per
+    channel); the kernel paths take the whole parameters (:meth:`Dense.full`)."""
 
     def __init__(self, dim: int, heads: int, dtype=None,
                  f32_stats: bool = False, use_pallas: bool = False):
@@ -163,6 +330,7 @@ class GraphMHA(nn.Module):
         self.heads = heads
         self.f32_stats = f32_stats
         self.use_pallas = use_pallas
+        self.node_axis = None
         for name in ("q", "k", "v", "e", "out_e", "out_n"):
             setattr(self, name, Dense(dim, dim, dtype))
 
@@ -170,34 +338,45 @@ class GraphMHA(nn.Module):
         if self.use_pallas and self.f32_stats:
             raise ValueError("f32_stats requires the plain attention path "
                              "(use_pallas off), as in the JAX package")
+        if self.node_axis is not None and (self.use_pallas or tail is not None):
+            raise ValueError("the fused attention kernels do not run in the "
+                             "node-sharded mode, as in the JAX package")
         b, n, c = node.shape
         h = self.heads
         dk = c // h
         if tail is not None:
+            we, be = self.e.full()
+            woe, boe = self.out_e.full()
             y_out, node_agg = fused_block_edge_stream(
-                self.q(node), self.k(node), self.v(node), edge,
-                self.e.weight.t(), self.e.bias, self.out_e.weight.t(),
-                self.out_e.bias, *tail, heads=h)
-            return self.out_n(node_agg), y_out
-        q = self.q(node).reshape(b, n, h, dk)
-        k = self.k(node).reshape(b, n, h, dk)
-        v = self.v(node).reshape(b, n, h, dk)
+                self.q.forward_full(node), self.k.forward_full(node),
+                self.v.forward_full(node), edge, we.t(), be, woe.t(), boe,
+                *tail, heads=h)
+            return self.out_n.forward_full(node_agg), y_out
         if self.use_pallas:
+            we, be = self.e.full()
+            woe, boe = self.out_e.full()
+            q, k, v = (m.forward_full(node).reshape(b, n, h, dk)
+                       for m in (self.q, self.k, self.v))
             edge_out, node_agg = edge_modulated_attention_proj(
-                q, k, v, edge, self.e.weight.t(), self.e.bias,
-                self.out_e.weight.t(), self.out_e.bias)
-            return self.out_n(node_agg), (edge_out if need_edge else None)
-        e = self.e(edge).reshape(b, n, n, h, dk)
-        # attn[b,i,j,h,dk] = q_i * k_j / sqrt(dk) * (e_ij + 1) * e_ij
+                q, k, v, edge, we.t(), be, woe.t(), boe)
+            return (self.out_n.forward_full(node_agg),
+                    (edge_out if need_edge else None))
+        q, k, v = self.q(node), self.k(node), self.v(node)
+        if self.node_axis is not None:
+            k = pvary(gather_node_rows(k, self.node_axis), self.node_axis)
+            v = pvary(gather_node_rows(v, self.node_axis), self.node_axis)
+        # per channel (the heads only set dk):
+        # attn[b,i,j,c] = q_i * k_j / sqrt(dk) * (e_ij + 1) * e_ij
+        e = self.e(edge)
         attn = q[:, :, None] * k[:, None]
         attn = attn / math.sqrt(dk)
         attn = attn * (e + 1.0) * e
-        edge_pre = attn.reshape(b, n, n, c)         # read BEFORE the softmax
+        edge_pre = attn                             # read BEFORE the softmax
         if self.f32_stats:
             attn = torch.softmax(attn.float(), dim=2).to(v.dtype)
         else:
             attn = torch.softmax(attn, dim=2)       # over keys j, per channel
-        node_agg = (attn * v[:, None]).sum(dim=2).reshape(b, n, c)
+        node_agg = (attn * v[:, None]).sum(dim=2)
         return self.out_n(node_agg), (self.out_e(edge_pre) if need_edge else None)
 
 
@@ -220,7 +399,11 @@ class EncoderBlock(nn.Module):
     ``use_pallas`` and no ``f32_stats``.  Otherwise ``"block"`` counts as
     ``True``: the fused tail (K1/K2).  With ``need_edge=False`` the
     megablock still runs (its node output is needed) and its edge output is
-    dropped.  The parameters are the same in every mode."""
+    dropped.  In the node-sharded mode (``attn.node_axis``) ``"block"``
+    counts as ``True`` (JAX ``layers.py:274-277``): K1/K2 run on the rank's
+    edge rows.  Under a split 'model' axis the fused tail takes ``mlp2``'s
+    whole parameters (:meth:`Dense.full`: LN2 needs the whole fc2 output).
+    The parameters are the same in every mode."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  drop_rate: float = 0.0, dtype=None, fused_mlp: bool | str = False,
@@ -242,12 +425,8 @@ class EncoderBlock(nn.Module):
         x1 = self.ln1(x)
         dropout_off = self.drop_rate == 0.0 or not self.training
         if (self.fused_mlp == "block" and dropout_off and not self.attn.use_pallas
-                and not self.f32_stats):
-            tail = (self.ln4.weight, self.ln4.bias,
-                    self.mlp2.fc1.weight.t(), self.mlp2.fc1.bias,
-                    self.mlp2.fc2.weight.t(), self.mlp2.fc2.bias,
-                    self.ln6.weight, self.ln6.bias)
-            x2, y = self.attn(x1, y, tail=tail)
+                and not self.f32_stats and self.attn.node_axis is None):
+            x2, y = self.attn(x1, y, tail=self._tail_params())
             x2 = self.ln3(x1 + x2)
             x = self.ln5(x2 + self.mlp(x2))
             return x, (y if need_edge else None)
@@ -261,13 +440,14 @@ class EncoderBlock(nn.Module):
         if not (self.fused_mlp and dropout_off and not self.f32_stats):
             y2 = self.ln4(y + y1)
             return x, self.ln6(y2 + self.mlp2(y2))
-        y = FusedLnMlpLn.apply(
-            y + y1,
-            self.ln4.weight, self.ln4.bias,
-            self.mlp2.fc1.weight.t(), self.mlp2.fc1.bias,
-            self.mlp2.fc2.weight.t(), self.mlp2.fc2.bias,
-            self.ln6.weight, self.ln6.bias)
-        return x, y
+        return x, FusedLnMlpLn.apply(y + y1, *self._tail_params())
+
+    def _tail_params(self) -> tuple:
+        """The edge tail's parameters as the fused ops take them (fc weights
+        [in, out], whole)."""
+        (w1, b1), (w2, b2) = self.mlp2.fc1.full(), self.mlp2.fc2.full()
+        return (self.ln4.weight, self.ln4.bias, w1.t(), b1, w2.t(), b2,
+                self.ln6.weight, self.ln6.bias)
 
 
 class TransformerEncoder(nn.Module):
@@ -291,12 +471,15 @@ class TransformerEncoder(nn.Module):
 
 @contextlib.contextmanager
 def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
-             use_pallas=..., forward_mode=...):
+             use_pallas=..., forward_mode=..., node_axis=...):
     """Run ``model`` under other numerics, on the same ``Parameter``
     objects: ``dtype`` (None = the promoted input dtype, i.e. f32) for every
     :class:`Dense` and :class:`LayerNorm`, ``fused_mlp`` (False, True or
     ``"block"``) for every :class:`EncoderBlock`, ``f32_stats`` and ``use_pallas`` for every
-    :class:`GraphMHA`, ``forward_mode`` for every :class:`LayerNorm`.
+    :class:`GraphMHA`, ``forward_mode`` for every :class:`LayerNorm`,
+    ``node_axis`` (the edge-partitioned mode) for every :class:`GraphMHA`
+    and every model with a ``node_axis`` attribute (the trunk's transpose,
+    the critic's head).
     An argument left out keeps the module's own value; all are restored on
     exit.  The counterpart of the JAX step's ``model.clone(...)``."""
     saved = []
@@ -305,8 +488,9 @@ def numerics(model: nn.Module, dtype=..., fused_mlp=..., f32_stats=...,
                                    ("fused_mlp", fused_mlp, (EncoderBlock,)),
                                    ("f32_stats", f32_stats, (GraphMHA,)),
                                    ("use_pallas", use_pallas, (GraphMHA,)),
-                                   ("forward_mode", forward_mode, (LayerNorm,))):
-            if value is not ... and isinstance(m, kinds):
+                                   ("forward_mode", forward_mode, (LayerNorm,)),
+                                   ("node_axis", node_axis, (nn.Module,))):
+            if value is not ... and isinstance(m, kinds) and hasattr(m, attr):
                 saved.append((m, attr, getattr(m, attr)))
                 setattr(m, attr, value)
     try:

@@ -19,6 +19,8 @@ from torch import nn
 from druggen_tpu_torch.models.layers import (
     Dense,
     TransformerEncoder,
+    distributed_edge_transpose,
+    gather_node_rows,
     get_activation,
     init_torch_style_,
 )
@@ -27,7 +29,14 @@ from druggen_tpu_torch.models.layers import (
 class _Trunk(nn.Module):
     """Shared front of the Generator: per-stream input MLPs, edge
     symmetrisation, transformer encoder.  A base class rather than a
-    submodule, so that its parameters keep the reference's top-level names."""
+    submodule, so that its parameters keep the reference's top-level names.
+
+    ``node_axis`` (set through :func:`..models.layers.numerics`): the
+    edge-partitioned mode (JAX ``models.py:54-79``): the inputs are this
+    rank's vertex rows (``z_n [B, n, m]``, ``z_e [B, n, N, b]``), the
+    symmetrisation's transpose is
+    :func:`..models.layers.distributed_edge_transpose` and the attention
+    gathers k/v.  The parameters are the unsharded model's."""
 
     def __init__(self, act: str, edges: int, nodes: int, dropout: float,
                  dim: int, depth: int, heads: int, mlp_ratio: int,
@@ -43,12 +52,17 @@ class _Trunk(nn.Module):
             Dense(64, dim, dtype), get_activation(act), nn.Dropout(dropout))
         self.TransformerEncoder = TransformerEncoder(
             dim, depth, heads, mlp_ratio, dropout, dtype, fused_mlp, use_pallas)
+        self.node_axis = None
 
     def trunk(self, z_e, z_n, need_last_edge: bool = True):
         node = self.node_layers(z_n)
         edge = self.edge_layers(z_e)
-        # symmetrise over the two vertex axes (reference models.py:94)
-        edge = (edge + edge.transpose(1, 2)) / 2.0
+        # symmetrise over the two vertex axes (reference models.py:94);
+        # node-sharded: one distributed transpose
+        if self.node_axis is not None:
+            edge = (edge + distributed_edge_transpose(edge, self.node_axis)) / 2.0
+        else:
+            edge = (edge + edge.transpose(1, 2)) / 2.0
         return self.TransformerEncoder(node, edge, need_last_edge)
 
 
@@ -117,6 +131,10 @@ class Discriminator(_Trunk):
 
     def forward(self, z_e, z_n, need_last_edge: bool = False):
         node, _ = self.trunk(z_e, z_n, need_last_edge)
+        if self.node_axis is not None:
+            # the head reads every node row of a sample: gather the small
+            # node stream (replicated; the edge stream stays sharded)
+            node = gather_node_rows(node, self.node_axis)
         return self.node_mlp(node.reshape(node.shape[0], -1))
 
 

@@ -82,17 +82,23 @@ def load_params_auto(path: str) -> dict:
     return to_torch_tensors(flax_generator_to_torch(read_flax_checkpoint(path)))
 
 
+def _state_dict(model) -> dict:
+    return model if isinstance(model, dict) else model.state_dict()
+
+
 def save_generator(path: str, G, stacked: bool = False) -> None:
-    save_params(path, torch_generator_to_flax(G.state_dict()), stacked)
+    """``G``: a Generator or its state dict."""
+    save_params(path, torch_generator_to_flax(_state_dict(G)), stacked)
 
 
 def save_gd_params(model_dir: str, G, D, epoch: int, it: int,
                    stacked: bool = False) -> None:
-    """Reference-style G/D exports (train.py:259-263 naming)."""
+    """Reference-style G/D exports (train.py:259-263 naming); ``G`` and
+    ``D`` are the models or their state dicts."""
     os.makedirs(model_dir, exist_ok=True)
     save_generator(os.path.join(model_dir, f"{epoch}-{it}-G.ckpt"), G, stacked)
     save_params(os.path.join(model_dir, f"{epoch}-{it}-D.ckpt"),
-                torch_discriminator_to_flax(D.state_dict()), stacked)
+                torch_discriminator_to_flax(_state_dict(D)), stacked)
 
 
 def save_state(model_dir: str, state: dict, keep: int = 3,

@@ -60,7 +60,10 @@ class AdamW:
     """``AdamW(module, lr, b1, b2, weight_decay, guard=True)``.
 
     ``step(grads)`` takes one gradient per parameter of ``module`` (in
-    ``module.parameters()`` order) and updates the parameters in place."""
+    ``module.parameters()`` order) and updates the parameters in place.
+    ``grad_hook`` (None by default), a function of the flat f32 gradient,
+    runs first: the parallel modes sum the gradients over their ranks there
+    (:func:`..parallel.mesh.gradient_hook`), before the guard decides."""
 
     def __init__(self, module: nn.Module, lr: float, b1: float = 0.9,
                  b2: float = 0.999, weight_decay: float = 0.01,
@@ -70,6 +73,7 @@ class AdamW:
         self.flat = flatten_parameters_(module)
         self.lr, self.b1, self.b2 = lr, b1, b2
         self.weight_decay, self.eps, self.guard = weight_decay, eps, guard
+        self.grad_hook = None
         dev = self.flat.device
         self._b1 = torch.tensor(b1, dtype=torch.float32, device=dev)
         self._b2 = torch.tensor(b2, dtype=torch.float32, device=dev)
@@ -114,6 +118,8 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads) -> None:
         g = self.flat_grads(grads)
+        if self.grad_hook is not None:
+            g = self.grad_hook(g)
         st = self.state
         count = st.count + 1
         # scale_by_adam: moments, bias correction, eps outside the sqrt

@@ -96,7 +96,12 @@ class TrainStep:
     detached).  ``eps`` = ``(eps_node [B,1,1], eps_edge [B,1,1,1])`` is the
     gradient-penalty noise; it is drawn from ``generator`` when None.  For
     the NoTarget submodel the drug inputs are ignored and the critic sees the
-    ChEMBL graphs themselves (reference train.py:340-345)."""
+    ChEMBL graphs themselves (reference train.py:340-345).
+
+    ``noise_rows=(i, k)``: the batch is block ``i`` of ``k`` equal blocks of
+    a global batch (data parallelism): the noise is drawn for the global
+    batch and this block's rows are kept, so the ranks draw what one device
+    would (JAX ``edge_partition.py:152-158``)."""
 
     def __init__(self, G, D, g_opt, d_opt, *, lambda_gp: float, m_dim: int,
                  b_dim: int, submodel: str = "DrugGEN",
@@ -105,7 +110,8 @@ class TrainStep:
                  share_fake="auto", fused_critic: bool | str = False,
                  gp_f32: bool = False, f32_stats: bool = False,
                  g_pallas: bool = False, split: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 noise_rows: tuple = (0, 1)):
         if node_mode not in ("labels", "dense"):
             raise ValueError(f"node_mode must be 'labels' or 'dense', got {node_mode!r}")
         if gp_mode not in ("revrev", "fwdrev"):
@@ -157,6 +163,7 @@ class TrainStep:
                 "forward). Use share_fake='auto' or set dropout=0.")
         self.share_fake = bool(share_fake)
         self.generator = generator
+        self.noise_rows = noise_rows
         self.g_params = list(G.parameters())
         self.d_params = list(D.parameters())
 
@@ -215,14 +222,18 @@ class TrainStep:
     def _d_update(self, x, a, disc_x, disc_a, eps, generator_for_d):
         # reference train.py:352-368
         if eps is None:
-            eps = draw_gp_noise(x.shape[0], disc_x.dtype, x.device,
-                                self.generator)
+            eps = self._draw_noise(x.shape[0], disc_x.dtype, x.device)
         d_loss = discriminator_loss(generator_for_d, self._critic, disc_a,
                                     disc_x, a, x, self.lambda_gp, *eps,
                                     gp_mode=self.gp_mode,
                                     **self._penalty_critics(x.device))
         self.d_opt.step(_grads(d_loss, self.d_params))
         return d_loss
+
+    def _draw_noise(self, b: int, dtype, device) -> tuple:
+        i, k = self.noise_rows
+        eps = draw_gp_noise(b * k, dtype, device, self.generator)
+        return tuple(t[i * b:(i + 1) * b] for t in eps)
 
     def d_step(self, x_labels, a_labels, drug_x_labels, drug_a_labels,
                eps=None):

@@ -69,7 +69,9 @@ def test_scan_sees_the_whole_package():
                    "interop/torch_ckpt.py", "train_corrector.py",
                    "mine_corrector_pairs.py", "import_torch_ckpt.py",
                    "utils/profiling.py", "utils/diagnostics.py", "data/fragmenter.py",
-                   "entry.py"):
+                   "entry.py", "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/edge_partition.py", "parallel/tensor_parallel.py",
+                   "scaling_bench.py"):
         assert f"druggen_tpu_torch/{module}" in paths
 
 
