@@ -162,6 +162,31 @@ def distributed_edge_transpose(e, axis):
     return _EdgeTranspose.apply(e, axis)
 
 
+def edge_attention(q, k, v, e, dk: int, node_axis=None, f32_stats: bool = False):
+    """The plain attention core of :class:`GraphMHA` on projected streams:
+    q ``[B, n, D]`` (the query rows), k/v ``[B, N, D]``, e ``[B, n, N, D]``;
+    per channel (the heads only set ``dk``)
+    ``attn[b,i,j,c] = q_i * k_j / sqrt(dk) * (e_ij + 1) * e_ij``, softmax over
+    keys j.  Returns ``(edge_pre, node_agg)``: the scores read before the
+    softmax ``[B, n, N, D]`` and the aggregated values ``[B, n, D]``.
+
+    ``node_axis``: k and v are this rank's rows, gathered over the axis
+    (:func:`gather_node_rows`, then :func:`pvary`: the local queries use
+    them).  ``f32_stats`` runs the softmax in f32 and casts it back."""
+    if node_axis is not None:
+        k = pvary(gather_node_rows(k, node_axis), node_axis)
+        v = pvary(gather_node_rows(v, node_axis), node_axis)
+    attn = q[:, :, None] * k[:, None]
+    attn = attn / math.sqrt(dk)
+    attn = attn * (e + 1.0) * e
+    edge_pre = attn                             # read BEFORE the softmax
+    if f32_stats:
+        attn = torch.softmax(attn.float(), dim=2).to(v.dtype)
+    else:
+        attn = torch.softmax(attn, dim=2)       # over keys j, per channel
+    return edge_pre, (attn * v[:, None]).sum(dim=2)
+
+
 class Dense(nn.Module):
     """``nn.Linear`` with a compute dtype (flax ``nn.Dense(dtype=...)``).
 
@@ -361,22 +386,9 @@ class GraphMHA(nn.Module):
                 q, k, v, edge, we.t(), be, woe.t(), boe)
             return (self.out_n.forward_full(node_agg),
                     (edge_out if need_edge else None))
-        q, k, v = self.q(node), self.k(node), self.v(node)
-        if self.node_axis is not None:
-            k = pvary(gather_node_rows(k, self.node_axis), self.node_axis)
-            v = pvary(gather_node_rows(v, self.node_axis), self.node_axis)
-        # per channel (the heads only set dk):
-        # attn[b,i,j,c] = q_i * k_j / sqrt(dk) * (e_ij + 1) * e_ij
-        e = self.e(edge)
-        attn = q[:, :, None] * k[:, None]
-        attn = attn / math.sqrt(dk)
-        attn = attn * (e + 1.0) * e
-        edge_pre = attn                             # read BEFORE the softmax
-        if self.f32_stats:
-            attn = torch.softmax(attn.float(), dim=2).to(v.dtype)
-        else:
-            attn = torch.softmax(attn, dim=2)       # over keys j, per channel
-        node_agg = (attn * v[:, None]).sum(dim=2)
+        edge_pre, node_agg = edge_attention(
+            self.q(node), self.k(node), self.v(node), self.e(edge), dk,
+            node_axis=self.node_axis, f32_stats=self.f32_stats)
         return self.out_n(node_agg), (self.out_e(edge_pre) if need_edge else None)
 
 

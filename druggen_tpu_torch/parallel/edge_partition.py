@@ -31,11 +31,9 @@ single-device step (``tests/test_torch_port_parallel*.py``).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from druggen_tpu_torch.models.layers import gather_node_rows, psum, pvary
+from druggen_tpu_torch.models.layers import edge_attention, psum
 from druggen_tpu_torch.parallel.mesh import Mesh, gradient_hook, shard
 from druggen_tpu_torch.train.step import TrainStep, _dropout_rate, _grads
 
@@ -48,28 +46,16 @@ def make_edge_mesh(dp: int, np_axis: int) -> Mesh:
     return Mesh({"data": dp, "node": np_axis})
 
 
-def _local_attention(q, k, v, e, dk: int):
-    """The attention math on local blocks: q ``[b, n, D]`` (local rows),
-    k/v ``[b, N, D]`` (all rows), e ``[b, n, N, D]``.  Returns edge_pre
-    ``[b, n, N, D]`` and node_agg ``[b, n, D]``."""
-    t = (q[:, :, None, :] * k[:, None, :, :]) / math.sqrt(dk)
-    t = t * (e + 1.0) * e
-    s = torch.softmax(t, dim=2)
-    return t, (s * v[:, None, :, :]).sum(dim=2)
-
-
 def edge_partitioned_attention(mesh: Mesh, q, k, v, e, dk: int):
     """The attention on this rank's blocks (:func:`shard_inputs`): k/v
-    gathered over 'node'.  Returns this rank's edge_pre and node_agg
-    blocks."""
-    node = mesh.axis("node")
-    k_full = pvary(gather_node_rows(k, node), node)
-    v_full = pvary(gather_node_rows(v, node), node)
-    return _local_attention(q, k_full, v_full, e, dk)
+    gathered over 'node', through the models' own core
+    (:func:`..models.layers.edge_attention`).  Returns this rank's edge_pre
+    and node_agg blocks."""
+    return edge_attention(q, k, v, e, dk, node_axis=mesh.axis("node"))
 
 
 def reference_unsharded(q, k, v, e, dk: int):
-    return _local_attention(q, k, v, e, dk)
+    return edge_attention(q, k, v, e, dk)
 
 
 def make_sharded_loss_grad(mesh: Mesh, dk: int):

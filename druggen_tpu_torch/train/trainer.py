@@ -605,6 +605,10 @@ class Trainer:
                 node_logits, edge_logits = (
                     pmesh.unshard(self.mesh, out[key].float(), spec).cpu().numpy()
                     for key, spec in zip(("node_logits", "edge_logits"), specs))
+                # the whole state is a collective under mesh_model; elsewhere
+                # only the writer builds it
+                if not (self.writer or self.tp_k > 1):
+                    continue
                 state = self.state()
                 gd = [self._whole(model) for model in (self.G, self.D)]
                 if not self.writer:
@@ -631,7 +635,8 @@ class Trainer:
                       flush=True)
         flush()
         # final checkpoint + submodel export for inference
-        state, g_sd = self.state(), self._whole(self.G)
+        if self.writer or self.tp_k > 1:
+            state, g_sd = self.state(), self._whole(self.G)
         if self.writer:
             ckpt.save_state(self.model_dir, state, guarded=cfg.nonfinite_guard,
                             stacked=cfg.scan_layers)
